@@ -8,12 +8,20 @@ Phases, each printing its result on its own line:
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, pins
    f32 products to full f32 (no TF32);
 2. build: compiles ``the_algorithm_tpu_torch/csrc/*.cu`` with nvcc (set-up);
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the SANN batch gives it, with both times;
-4. retrieval: SimClusters-ANN at the production shape (C=145,408 clusters,
+3. retrieval: SimClusters-ANN at the production shape (C=145,408 clusters,
    M=400, N=50, X=200, Q=256) on ``bench.py``'s seeded data rebuilt with
-   numpy; the kernels' launch counts during that batch; oracle parity on 8
-   queries; recall@100 against the exact full-corpus scan;
+   numpy; the kernels' launch counts during that batch; queries/s on the
+   host clock, taken before any profiler session (a process that has run
+   some dozens of them dispatches more slowly); oracle parity on 8 queries;
+   recall@100 against the exact full-corpus scan;
+4. kernels: each hand-written kernel against its plain PyTorch version on
+   the card, at the shapes the SANN batch gives it, with both times (CUDA
+   events around the call, and device time alone from ``torch.profiler``);
+   the TMA ring's device time at its chosen shape and each neighbour
+   shape, at the SANN rows and the 256-byte hydration rows (the measurement
+   behind ``gather.RING``); then a row_gather sweep at the hydration tables'
+   widths and 4-byte words, bit-exact against ``index_select``, with both
+   times and TB/s;
 5. ranking: a MaskNet at the flagship width (F=6000, 15 heads, G=4, D=512,
    A=128, trunk (256, 128)) from a seeded generator, saved as a registry
    version and served over HTTP in bf16; every answer is held against a
@@ -37,6 +45,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from the_algorithm_tpu_torch import _build
 from the_algorithm_tpu_torch.data import sann_world
@@ -81,10 +90,49 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_pair(kernel, plain, reps=50):
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` in ms: the self device time of every
+    kernel ``reps`` warm calls launch, from ``torch.profiler``, over ``reps``.
+    Unlike :func:`cuda_ms` it leaves out the host's work between launches."""
+    for _ in range(3):
+        fn()
+    # a session now and then records no device activity at all (seen after
+    # some dozens of sessions in one process): measure that one again
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1000
+    raise RuntimeError("chip_smoke: torch.profiler saw no device time in three sessions")
+
+
+def timed_pair(kernel, plain, reps=50, clock=cuda_ms):
     """Plain, kernel, kernel, plain, so drift on the card splits evenly."""
-    p1, k1, k2, p2 = cuda_ms(plain, reps), cuda_ms(kernel, reps), cuda_ms(kernel, reps), cuda_ms(plain, reps)
+    p1, k1, k2, p2 = clock(plain, reps), clock(kernel, reps), clock(kernel, reps), clock(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def time_gather(ids, tables, label):
+    """row_gather against index_select on the card: bit-exact, both clocks, TB/s."""
+    got = gather.row_gather(ids, *tables)
+    want = gather.row_gather_plain(ids, *tables)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g.view(torch.uint8), w.view(torch.uint8)) for g, w in zip(got, want)),
+            f"row_gather differs from index_select at {label}")
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    kernel = lambda: gather.row_gather(ids, *tables)  # noqa: E731
+    plain = lambda: gather.row_gather_plain(ids, *tables)  # noqa: E731
+    ms, plain_ms = timed_pair(kernel, plain)
+    dev_ms, plain_dev_ms = timed_pair(kernel, plain, clock=device_ms)
+    moved = 2 * ids.numel() * sum(t.shape[1] * t.element_size() for t in tables)  # rows read + written
+    print(f"kernel row_gather: {label}, {moved / 1e6:.1f} MB moved, bit-exact; device "
+          f"{dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s) vs index_select {plain_dev_ms:.4f} ms "
+          f"({moved / plain_dev_ms / 1e9:.2f} TB/s); events {ms:.4f} ms vs {plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms)
 
 
 def phase_device():
@@ -128,16 +176,10 @@ def phase_kernels(shape, index, sources):
     safe = torch.where(src.valid_mask(), src.ids, 0).reshape(-1).contiguous()  # [Q·N] = 12,800
     tables = (index.tweet_ids, index.scores, index.timestamps)
 
+    label = f"{safe.shape[0]} rows x 3 tables [{shape.C}, {shape.M}]"
+    gathered = time_gather(safe, tables, label)
+    time_ring_shapes(safe, tables, label)
     got = gather.row_gather(safe, *tables)
-    want = gather.row_gather_plain(safe, *tables)
-    torch.cuda.synchronize()
-    require(all(torch.equal(g, w) for g, w in zip(got, want)), "row_gather differs from index_select")
-    gather_err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-    g_ms, g_plain_ms = timed_pair(lambda: gather.row_gather(safe, *tables),
-                                  lambda: gather.row_gather_plain(safe, *tables))
-    print(f"kernel row_gather: {safe.shape[0]} rows x 3 tables [{shape.C}, {shape.M}] bit-exact; "
-          f"{g_ms:.4f} ms vs index_select {g_plain_ms:.4f} ms")
-
     rows = tuple(r.reshape(shape.Q, shape.N, shape.M) for r in got)
     entries = retrieval.sort_by_id(*retrieval.scan_entries(*rows, src))  # sorted [Q, N·M]
     got = seg_scan.run_collapse_sorted(*entries)
@@ -148,15 +190,64 @@ def phase_kernels(shape, index, sources):
             "run_collapse sums differ from the plain version")
     collapse_err = max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:]))
     n_runs = int((got[0] != PAD_ID).sum())
-    c_ms, c_plain_ms = timed_pair(lambda: seg_scan.run_collapse_sorted(*entries),
-                                  lambda: seg_scan.run_collapse_sorted_plain(*entries))
+    kernel = lambda: seg_scan.run_collapse_sorted(*entries)  # noqa: E731
+    plain = lambda: seg_scan.run_collapse_sorted_plain(*entries)  # noqa: E731
+    c_ms, c_plain_ms = timed_pair(kernel, plain)
+    c_dev_ms, c_plain_dev_ms = timed_pair(kernel, plain, clock=device_ms)
     print(f"kernel run_collapse: [{shape.Q}, {shape.N * shape.M}] k=2, {n_runs} runs, same (row, id) "
-          f"slots, max |sum err| {collapse_err:.3g} (rtol {SUM_RTOL}, atol {SUM_ATOL}); "
-          f"{c_ms:.4f} ms vs plain {c_plain_ms:.4f} ms")
+          f"slots, max |sum err| {collapse_err:.3g} (rtol {SUM_RTOL}, atol {SUM_ATOL}); device "
+          f"{c_dev_ms:.4f} ms vs plain {c_plain_dev_ms:.4f} ms; events {c_ms:.4f} ms vs {c_plain_ms:.4f} ms")
     return {
-        "run_collapse": dict(max_abs_err=collapse_err, ms=c_ms, plain_ms=c_plain_ms),
-        "row_gather": dict(max_abs_err=gather_err, ms=g_ms, plain_ms=g_plain_ms),
+        "run_collapse": dict(max_abs_err=collapse_err, ms=c_ms, plain_ms=c_plain_ms,
+                             device_ms=c_dev_ms, plain_device_ms=c_plain_dev_ms),
+        "row_gather": gathered,
     }
+
+
+# the hydration tables' widths (the_algorithm_tpu/mixers/device_hydration.py:71-102)
+# and the 4-byte path: (rows, columns, ids)
+GATHER_SWEEP = [(1_000_000, 64, 16_384), (1_000_000, 128, 16_384), (1_000_000, 4, 262_144),
+                (1_000_000, 7, 262_144)]
+# the TMA ring's neighbours of gather.RING: stage budget, stages, CTAs per SM
+# (at most: _plan keeps every CTA resident)
+RING_NEIGHBOURS = [gather.RingShape(8 * 1024, 4, 8), gather.RingShape(32 * 1024, 4, 8),
+                   gather.RingShape(16 * 1024, 2, 8), gather.RingShape(16 * 1024, 6, 8),
+                   gather.RingShape(16 * 1024, 4, 4), gather.RingShape(16 * 1024, 4, 12)]
+
+
+def time_ring_shapes(ids, tables, label):
+    """The ring's device time at gather.RING (first and last) and at each
+    neighbour, every shape bit-exact: the measurement behind gather.RING."""
+    want = gather.row_gather_plain(ids, *tables)
+    chosen, times = gather.RING, []
+    try:
+        for ring in [chosen, *RING_NEIGHBOURS, chosen]:
+            gather.RING = ring
+            got = gather.row_gather(ids, *tables)
+            torch.cuda.synchronize()
+            require(all(torch.equal(g.view(torch.uint8), w.view(torch.uint8)) for g, w in zip(got, want)),
+                    f"row_gather with ring {ring} differs from index_select at {label}")
+            times.append((ring, device_ms(lambda: gather.row_gather(ids, *tables), 50)))
+    finally:
+        gather.RING = chosen
+    print(f"ring shapes at {label} (stage KB, stages, CTAs/SM: device ms): " + ", ".join(
+        f"{r.stage_bytes // 1024}/{r.stages}/{r.ctas_per_sm}{'*' if r == chosen else ''}: {ms:.4f}"
+        for r, ms in times))
+
+
+def sweep_table(dev, i):
+    R, M, B = GATHER_SWEEP[i]
+    table = torch.randn((R, M), generator=torch.Generator(device=dev).manual_seed(i), device=dev)
+    ids = torch.from_numpy(np.random.default_rng(i).integers(0, R, size=B).astype(np.int32)).to(dev)
+    return ids, (table,), f"{B} rows of [{R}, {M}] f32 ({4 * M}-byte rows)"
+
+
+def phase_gather_sweep(dev):
+    """row_gather at each sweep shape: one f32 table, seeded ids with repeats."""
+    time_ring_shapes(*sweep_table(dev, 0))
+    for i in range(len(GATHER_SWEEP)):
+        time_gather(*sweep_table(dev, i))
+    torch.cuda.empty_cache()
 
 
 def phase_retrieval(shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, index, sources):
@@ -286,8 +377,9 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     world = build_world(dev)
-    kernels = phase_kernels(world[0], world[6], world[7])
     launches = phase_retrieval(*world)
+    kernels = phase_kernels(world[0], world[6], world[7])
+    phase_gather_sweep(dev)
     phase_ranking(dev)
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),

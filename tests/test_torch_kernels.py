@@ -82,6 +82,69 @@ def test_row_gather_kernel_matches_plain_on_both_access_widths(cuda_device):
             assert g.shape == w.shape and torch.equal(g, w)
 
 
+def _table(rng, R, cols, dtype):
+    if dtype == np.int32:
+        return torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, size=(R, cols)).astype(np.int32))
+    return torch.from_numpy(rng.standard_normal((R, cols)).astype(dtype))
+
+
+# (R, [(columns, dtype) per table], B, ids, path): edge cases of both kernels'
+# launch plans; ids "rand" draw with repeats, "same" are all one row
+SANN = [(400, np.int32), (400, np.float32), (400, np.int32)]
+GATHER_CASES = {
+    "B=1": (1000, SANN, 1, "rand", "ring"),
+    "B below one stage": (1000, [(4, np.float32)], 5, "rand", "ring"),
+    "B not a multiple of rows_per_stage": (1000, SANN, 12_805, "rand", "ring"),
+    "B far above the grid": (1000, SANN, 100_000, "rand", "ring"),
+    "all ids equal": (1000, [(400, np.int32), (400, np.float32)], 4096, "same", "ring"),
+    "k=1": (500, [(128, np.float32)], 3000, "rand", "ring"),
+    "k=2, two widths": (500, [(4, np.float32), (64, np.int32)], 3000, "rand", "ring"),
+    "k=3, three widths": (500, [(12, np.int32), (400, np.float32), (4, np.float64)], 3000, "rand", "ring"),
+    "16-byte row": (100_000, [(4, np.float32)], 262_144, "rand", "ring"),
+    "32 KB rows, many": (64, [(8192, np.float32)], 2000, "rand", "ring"),
+    "row wider than a stage, B=1": (64, [(32_768, np.float32)], 1, "rand", "ring"),
+    "row wider than a stage": (64, [(32_768, np.float32)], 300, "rand", "ring"),
+    "wide row beside narrow ones": (64, [(4, np.int32), (32_768, np.float32), (100, np.float32)], 77,
+                                    "rand", "ring"),
+    "wide rows, every CTA wraps its ring": (64, [(32_768, np.float32)], 132 * 8, "rand", "ring"),
+    "wide rows, all ids equal": (64, [(16_400, np.float32), (16_400, np.int32)], 50, "same", "ring"),
+    "4-byte words, k=3": (1000, [(7, np.float32), (3, np.int32), (45, np.float32)], 20_001, "rand", "words"),
+    "4-byte words, one word": (1000, [(1, np.float32)], 5000, "rand", "words"),
+    "4-byte words, wide rows": (64, [(32_769, np.float32)], 100, "rand", "words"),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_row_gather_kernel_matches_plain_at_plan_edges(cuda_device, case):
+    R, widths, B, kind, path = GATHER_CASES[case]
+    rng = np.random.default_rng(len(case))
+    tables = [_table(rng, R, cols, dt).to(cuda_device) for cols, dt in widths]
+    ids_np = np.full(B, R // 2, np.int32) if kind == "same" else rng.integers(0, R, size=B).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    row_bytes = [t.shape[1] * t.element_size() for t in tables]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = gather._plan(row_bytes, [t.data_ptr() for t in tables], B, sms)
+    assert plan.path == path
+    if path == "ring":
+        r = plan.rows_per_stage
+        units = -(-B // r) if r else B * sum(-(-b // plan.piece) for b in row_bytes)
+        if case == "B below one stage":
+            assert B * sum(row_bytes) < gather.RING.stage_bytes
+        if case == "B not a multiple of rows_per_stage":
+            assert r > 1 and B % r != 0
+        if case in ("B far above the grid", "wide rows, every CTA wraps its ring"):
+            assert units > 4 * plan.grid * plan.stages  # every CTA reuses each stage many times
+        if case.startswith("row wider") or case.startswith("wide row") or case == "32 KB rows, many":
+            assert r == 0 and units > len(tables) * B  # rows split into pieces
+    before = gather.row_gather.launches
+    got = gather.row_gather(ids, *tables)
+    torch.cuda.synchronize()
+    assert gather.row_gather.launches == before + 1
+    for g, w in zip(got, gather.row_gather_plain(ids, *tables)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+
+
 def test_row_gather_rejects_rows_it_cannot_copy_in_words(cuda_device):
     t = torch.zeros(10, 7, dtype=torch.bfloat16, device=cuda_device)  # 14-byte rows
     with pytest.raises(ValueError):
