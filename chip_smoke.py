@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+The run_collapse sweep alone, for a copy of this script placed in an older
+tree (it times whichever ``the_algorithm_tpu_torch`` sits beside it):
+
+    python3 -c "import chip_smoke as c; d = c.phase_device(); c.phase_build(); c.phase_collapse_sweep(d)"
+
 Phases, each printing its result on its own line:
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, pins
@@ -16,12 +21,17 @@ Phases, each printing its result on its own line:
    recall@100 against the exact full-corpus scan;
 4. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the SANN batch gives it, with both times (CUDA
-   events around the call, and device time alone from ``torch.profiler``);
-   the TMA ring's device time at its chosen shape and each neighbour
-   shape, at the SANN rows and the 256-byte hydration rows (the measurement
-   behind ``gather.RING``); then a row_gather sweep at the hydration tables'
-   widths and 4-byte words, bit-exact against ``index_select``, with both
-   times and TB/s;
+   events around the call, and device time alone from ``torch.profiler``)
+   and the share of each kernel's bytes bound; run_collapse's device time
+   at its tile shape and each neighbour (the measurement behind
+   ``seg_scan.SHAPE``); the TMA ring's device time at its chosen shape and
+   each neighbour shape, at the SANN rows and the 256-byte hydration rows
+   (the measurement behind ``gather.RING``); then a row_gather sweep at the
+   hydration tables' widths and 4-byte words, bit-exact against
+   ``index_select``, with both times and TB/s; then a run_collapse sweep
+   over Q, W and k on seeded sorted rows, against its plain version, with
+   both times, TB/s, the share of its bound, and the device time of
+   ``copy_`` moving the same bytes;
 5. ranking: a MaskNet at the flagship width (F=6000, 15 heads, G=4, D=512,
    A=128, trunk (256, 128)) from a seeded generator, saved as a registry
    version and served over HTTP in bf16; every answer is held against a
@@ -70,6 +80,13 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 # negative combined sum lands in (0, 1e-6], hence the absolute floor
 SCORE_RTOL, SCORE_ATOL = 2e-2, 1e-8
 LOGIT_ATOL = 5e-2
+# H100 SXM device memory rate (NVIDIA's data sheet): a kernel's bytes bound
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(moved_bytes: int) -> float:
+    """The least time the card could take to move ``moved_bytes``."""
+    return moved_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def require(ok: bool, what: str) -> None:
@@ -96,18 +113,21 @@ def device_ms(fn, reps: int) -> float:
     Unlike :func:`cuda_ms` it leaves out the host's work between launches."""
     for _ in range(3):
         fn()
-    # a session now and then records no device activity at all (seen after
-    # some dozens of sessions in one process): measure that one again
+    # a session now and then records no device activity at all, or only part
+    # of it (seen after some dozens of sessions in one process): every call
+    # launches at least one kernel, so a session that saw fewer kernels than
+    # calls is measured again
     for _ in range(3):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kernels)
+        if us > 0 and sum(e.count for e in kernels) >= reps:
             return us / reps / 1000
-    raise RuntimeError("chip_smoke: torch.profiler saw no device time in three sessions")
+    raise RuntimeError("chip_smoke: torch.profiler saw fewer kernels than calls in three sessions")
 
 
 def timed_pair(kernel, plain, reps=50, clock=cuda_ms):
@@ -132,7 +152,9 @@ def time_gather(ids, tables, label):
     print(f"kernel row_gather: {label}, {moved / 1e6:.1f} MB moved, bit-exact; device "
           f"{dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s) vs index_select {plain_dev_ms:.4f} ms "
           f"({moved / plain_dev_ms / 1e9:.2f} TB/s); events {ms:.4f} ms vs {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms)
+    # the plain version is one index_select per table: the library's own call
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                bound_ms=bound_ms(moved), bound_by="bytes", library_ms=plain_dev_ms)
 
 
 def phase_device():
@@ -170,6 +192,39 @@ def build_world(dev):
     return shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, index, sources
 
 
+def time_collapse(entries, label):
+    """run_collapse against its plain version on the card: the same (row, id)
+    slots, sums within SUM_RTOL / SUM_ATOL, both clocks, TB/s and the share
+    of the bytes bound."""
+    got = seg_scan.run_collapse_sorted(*entries)
+    want = seg_scan.run_collapse_sorted_plain(*entries)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]), f"run_collapse (row, id) slots differ from the plain version at {label}")
+    require(all(torch.allclose(g, w, rtol=SUM_RTOL, atol=SUM_ATOL) for g, w in zip(got[1:], want[1:])),
+            f"run_collapse sums differ from the plain version at {label}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:]))
+    n_runs = int((got[0] != PAD_ID).sum())
+    kernel = lambda: seg_scan.run_collapse_sorted(*entries)  # noqa: E731
+    plain = lambda: seg_scan.run_collapse_sorted_plain(*entries)  # noqa: E731
+    ms, plain_ms = timed_pair(kernel, plain)
+    dev_ms, plain_dev_ms = timed_pair(kernel, plain, clock=device_ms)
+    # the same bytes through the device's own copy kernel: what the memory
+    # system gives this traffic in practice
+    copies = [torch.empty_like(t) for t in entries]
+    copy_ms = device_ms(lambda: [c.copy_(t) for c, t in zip(copies, entries)], 50)
+    del copies
+    moved = 2 * sum(t.numel() * t.element_size() for t in entries)  # every slot read + written
+    bound = bound_ms(moved)
+    Q, W = entries[0].shape
+    print(f"kernel run_collapse: {label} [{Q}, {W}] k={len(entries) - 1}, {n_runs} runs, {moved / 1e6:.2f} MB "
+          f"moved, same (row, id) slots, max |sum err| {err:.3g} (rtol {SUM_RTOL}, atol {SUM_ATOL}); device "
+          f"{dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s, {100 * bound / dev_ms:.1f}% of its {bound:.4f} ms "
+          f"bound) vs plain {plain_dev_ms:.4f} ms; events {ms:.4f} ms vs {plain_ms:.4f} ms; copy_ of the same "
+          f"bytes {copy_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None, copy_ms=copy_ms)
+
+
 def phase_kernels(shape, index, sources):
     """Each kernel against its plain version on the inputs the SANN batch gives it."""
     src = sparse.truncate(sources, shape.N)
@@ -182,26 +237,59 @@ def phase_kernels(shape, index, sources):
     got = gather.row_gather(safe, *tables)
     rows = tuple(r.reshape(shape.Q, shape.N, shape.M) for r in got)
     entries = retrieval.sort_by_id(*retrieval.scan_entries(*rows, src))  # sorted [Q, N·M]
-    got = seg_scan.run_collapse_sorted(*entries)
+    collapsed = time_collapse(entries, "SANN batch's sorted entries")
+    time_tile_shapes(entries, "SANN batch's sorted entries")
+    return {"run_collapse": collapsed, "row_gather": gathered}
+
+
+def time_tile_shapes(entries, label):
+    """run_collapse's device time at seg_scan.SHAPE (first and last) and at
+    each neighbour, every shape checked against the plain version: the
+    measurement behind seg_scan.SHAPE."""
     want = seg_scan.run_collapse_sorted_plain(*entries)
-    torch.cuda.synchronize()
-    require(torch.equal(got[0], want[0]), "run_collapse (row, id) slots differ from the plain version")
-    require(all(torch.allclose(g, w, rtol=SUM_RTOL, atol=SUM_ATOL) for g, w in zip(got[1:], want[1:])),
-            "run_collapse sums differ from the plain version")
-    collapse_err = max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:]))
-    n_runs = int((got[0] != PAD_ID).sum())
-    kernel = lambda: seg_scan.run_collapse_sorted(*entries)  # noqa: E731
-    plain = lambda: seg_scan.run_collapse_sorted_plain(*entries)  # noqa: E731
-    c_ms, c_plain_ms = timed_pair(kernel, plain)
-    c_dev_ms, c_plain_dev_ms = timed_pair(kernel, plain, clock=device_ms)
-    print(f"kernel run_collapse: [{shape.Q}, {shape.N * shape.M}] k=2, {n_runs} runs, same (row, id) "
-          f"slots, max |sum err| {collapse_err:.3g} (rtol {SUM_RTOL}, atol {SUM_ATOL}); device "
-          f"{c_dev_ms:.4f} ms vs plain {c_plain_dev_ms:.4f} ms; events {c_ms:.4f} ms vs {c_plain_ms:.4f} ms")
-    return {
-        "run_collapse": dict(max_abs_err=collapse_err, ms=c_ms, plain_ms=c_plain_ms,
-                             device_ms=c_dev_ms, plain_device_ms=c_plain_dev_ms),
-        "row_gather": gathered,
-    }
+    chosen, times = seg_scan.SHAPE, []
+    try:
+        for tile_shape in [chosen, *(seg_scan.TileShape(*n) for n in TILE_NEIGHBOURS), chosen]:
+            seg_scan.SHAPE = tile_shape
+            got = seg_scan.run_collapse_sorted(*entries)
+            torch.cuda.synchronize()
+            require(torch.equal(got[0], want[0]) and all(
+                torch.allclose(g, w, rtol=SUM_RTOL, atol=SUM_ATOL) for g, w in zip(got[1:], want[1:])),
+                f"run_collapse with {tile_shape} differs from the plain version at {label}")
+            times.append((tile_shape, device_ms(lambda: seg_scan.run_collapse_sorted(*entries), 50)))
+    finally:
+        seg_scan.SHAPE = chosen
+    (Q, W), k = entries[0].shape, len(entries) - 1
+    sms = torch.cuda.get_device_properties(entries[0].device).multi_processor_count
+    print(f"tile shapes at {label} (most slots a tile / stages / CTAs per SM -> plan: device ms): " + ", ".join(
+        f"{s.tile_max}/{s.stages}/{s.per_sm}{'*' if s == chosen else ''} -> {tuple(seg_scan._plan(Q, W, k, sms, s))}: "
+        f"{ms:.4f}"
+        for s, ms in times))
+
+
+# run_collapse's sweep (Q, W, k) on seeded rows, the SANN shape first
+COLLAPSE_SWEEP = [(256, 20_000, 2), (32, 20_000, 2), (1024, 20_000, 2), (256, 20_000, 1), (256, 20_000, 3),
+                  (16, 200_000, 2)]
+# the neighbours of seg_scan.SHAPE: most slots to a tile, stages, CTAs aimed at per SM
+TILE_NEIGHBOURS = [(2040, 2, 1), (2040, 3, 1), (2728, 3, 1), (3000, 2, 1), (4088, 1, 1), (4088, 2, 2)]
+
+
+def collapse_entries(dev, Q, W, k, seed):
+    """Seeded sorted rows: ids with runs of ~5 slots on average over the
+    first 80% of each row, then a PAD tail; values uniform in [0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    real = W - W // 5
+    ids = torch.randint(0, max(1, real // 5), (Q, W), generator=g, device=dev, dtype=torch.int32)
+    ids[:, real:] = PAD_ID
+    ids = torch.sort(ids, dim=1).values.contiguous()
+    return (ids, *(torch.rand((Q, W), generator=g, device=dev) for _ in range(k)))
+
+
+def phase_collapse_sweep(dev):
+    """run_collapse at each sweep shape against its plain version."""
+    for i, (Q, W, k) in enumerate(COLLAPSE_SWEEP):
+        time_collapse(collapse_entries(dev, Q, W, k, i), "seeded rows")
+    torch.cuda.empty_cache()
 
 
 # the hydration tables' widths (the_algorithm_tpu/mixers/device_hydration.py:71-102)
@@ -311,8 +399,8 @@ def phase_retrieval(shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, i
     ) as prof:
         ann.get_tweet_candidates_batch(index, sources, cfg)
         torch.cuda.synchronize()
-    print("retrieval profile, one batch (torch.profiler, top 10 by device time):")
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10))
+    print("retrieval profile, one batch (torch.profiler, top 16 by device time):")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=16))
     return launches
 
 
@@ -380,6 +468,7 @@ def main() -> int:
     launches = phase_retrieval(*world)
     kernels = phase_kernels(world[0], world[6], world[7])
     phase_gather_sweep(dev)
+    phase_collapse_sweep(dev)
     phase_ranking(dev)
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),

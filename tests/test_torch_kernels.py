@@ -10,7 +10,7 @@ imports JAX) is left out:
 import numpy as np
 import pytest
 import torch
-from torch_port_util import assert_same_collapse, assert_same_topk, collapse_to_dict, cuda_device  # noqa: F401
+from torch_port_util import assert_same_topk, cuda_device  # noqa: F401
 
 from the_algorithm_tpu_torch.data import sann_world
 from the_algorithm_tpu_torch.ops import gather, seg_scan
@@ -21,42 +21,74 @@ from the_algorithm_tpu_torch.simclusters import ann
 pytestmark = pytest.mark.gpu
 
 
-def _sums64(ids_row, vals_row):
-    """{id: (float64 run totals...)} of one sorted row, PAD dropped."""
-    out = {}
-    for i, t in enumerate(ids_row):
-        if t != PAD_ID:
-            out[int(t)] = tuple(a + float(v[i]) for a, v in zip(out.get(int(t), (0.0,) * len(vals_row)), vals_row))
-    return out
+def _sums64(ids, vals):
+    """Float64 run totals at each run's last slot of sorted [Q, W] rows, 0
+    elsewhere and on PAD runs."""
+    Q, W = ids.shape
+    head = np.ones((Q, W), bool)
+    head[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    last = np.ones((Q, W), bool)
+    last[:, :-1] = head[:, 1:]
+    last &= ids != PAD_ID
+    run = np.cumsum(head.reshape(-1)) - 1  # every row starts a run
+    return [np.where(last, np.bincount(run, weights=v.reshape(-1).astype(np.float64))[run].reshape(Q, W), 0.0)
+            for v in vals]
+
+
+def _collapse_rows(rng, Q, W, tile):
+    """Sorted rows, by q % 5: runs of one tile's length that cross every tile
+    edge, random runs with a PAD tail, one run over the whole row, random
+    runs, all PAD."""
+    ids = np.sort(rng.integers(0, max(1, W // 5), size=(Q, W)).astype(np.int32), axis=1)
+    for q in range(Q):
+        kind = q % 5
+        if kind == 0:
+            ids[q] = (np.arange(W) + tile // 2) // tile
+        elif kind == 1:
+            ids[q, -(W // 5 + 1):] = PAD_ID
+        elif kind == 2:
+            ids[q] = 5
+        elif kind == 4:
+            ids[q] = PAD_ID
+    return ids
+
+
+# (Q, W, pointer offset in slots): W at 1 and 3 slots, around a tile (the
+# unaligned W = 3 and 4,097 take the kernel's scalar head and tail), around
+# one pass of a full cluster (5 rows get 8 CTAs each), at SANN and at ten
+# times it; one row and 1,000 rows (one CTA each); an offset of 1 slot puts
+# every row off 16-byte alignment
+_REACH = seg_scan.MAX_CLUSTER * seg_scan.SHAPE.tile_max
+COLLAPSE_CASES = [(5, 1, 0), (5, 3, 0), (5, 2048, 0), (5, 4095, 0), (5, 4096, 0), (5, 4097, 0),
+                  (5, _REACH - 1, 0), (5, _REACH + 1, 0), (5, 20_000, 0), (5, 200_000, 0), (1, 20_000, 0),
+                  (1000, 4097, 0), (5, 20_000, 1)]
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
-@pytest.mark.parametrize("W", [1, 2048, 4096, 20_000])
-def test_run_collapse_kernel_matches_plain(cuda_device, k, W):
-    rng = np.random.default_rng(W + k)
-    Q = 5
-    # runs far longer than a 2,048-slot chunk, runs across chunk edges, a PAD tail
-    ids = np.sort(rng.integers(0, max(1, W // 500), size=(Q, W)).astype(np.int32), axis=1)
-    ids[1, -(W // 7 + 1):] = PAD_ID
-    ids[2] = 5  # one run over the whole row
+@pytest.mark.parametrize("Q,W,offset", COLLAPSE_CASES)
+def test_run_collapse_kernel_matches_plain(cuda_device, k, Q, W, offset):
+    rng = np.random.default_rng(W + k + Q)
+    plan = seg_scan._plan(Q, W, k, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    ids = _collapse_rows(rng, Q, W, plan.tile)
     vals = [rng.random((Q, W)).astype(np.float32) for _ in range(k)]
-    args = [torch.from_numpy(a).to(cuda_device) for a in (ids, *vals)]
+
+    def on_card(a):  # contiguous, `offset` slots into its storage
+        t = torch.empty(a.size + offset, dtype=torch.from_numpy(a).dtype, device=cuda_device)
+        t = t[offset:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+
+    args = [on_card(a) for a in (ids, *vals)]
     before = seg_scan.run_collapse_sorted.launches
     got = seg_scan.run_collapse_sorted(*args)
     torch.cuda.synchronize()
     assert seg_scan.run_collapse_sorted.launches == before + 1
     want = seg_scan.run_collapse_sorted_plain(*args)
     assert torch.equal(got[0], want[0])  # both fill run ends
-    empty = got[0] == PAD_ID
-    assert all(bool((g[empty] == 0).all()) for g in got[1:])
-    # run totals against float64: a 20,000-term run sums to ~1e4, where two
+    # run totals against float64: a 200,000-term run sums to ~1e5, where two
     # f32 summation orders may differ by more than 1e-5
-    for q in range(Q):
-        assert_same_collapse(
-            collapse_to_dict(*(g[q].cpu() for g in got)),
-            _sums64(ids[q], [v[q].astype(np.float64) for v in vals]),
-            rtol=1e-5, atol=1e-6,
-        )
+    for g, w in zip(got[1:], _sums64(ids, vals)):
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-5, atol=1e-6)
 
 
 def test_row_gather_kernel_matches_plain_on_both_access_widths(cuda_device):

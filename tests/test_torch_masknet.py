@@ -43,7 +43,7 @@ def test_logits_match_flax_on_the_same_weights(flax_model):
     model, params = flax_model
     x = _features()
     want = np.asarray(model.apply(params, jnp.asarray(x)))
-    port = masknet.MaskNet(masknet.MaskNetConfig(**SMALL))
+    port = masknet.MaskNet(masknet.MaskNetConfig(**SMALL), device="cpu")
     port.load_state_dict(masknet.params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
     with torch.no_grad():
         got = port(torch.from_numpy(x)).numpy()
@@ -53,7 +53,7 @@ def test_logits_match_flax_on_the_same_weights(flax_model):
 
 def test_state_dict_has_exactly_the_flax_params(flax_model):
     _, params = flax_model
-    port = masknet.MaskNet(masknet.MaskNetConfig(**SMALL))
+    port = masknet.MaskNet(masknet.MaskNetConfig(**SMALL), device="cpu")
     sd = masknet.params_from_flax(jax.tree_util.tree_map(np.asarray, params))
     assert set(sd) == set(port.state_dict())
     for k, v in port.state_dict().items():
@@ -67,8 +67,8 @@ def test_state_dict_has_exactly_the_flax_params(flax_model):
 def test_bf16_config_tracks_f32_on_the_same_weights():
     cfg32 = masknet.MaskNetConfig(**SMALL)
     cfg16 = masknet.MaskNetConfig(**{**SMALL, "dtype": "bfloat16"})
-    m32 = masknet.MaskNet(cfg32, generator=torch.Generator().manual_seed(3))
-    m16 = masknet.MaskNet(cfg16)
+    m32 = masknet.MaskNet(cfg32, device="cpu", generator=torch.Generator().manual_seed(3))
+    m16 = masknet.MaskNet(cfg16, device="cpu")
     m16.load_state_dict(m32.state_dict())
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 64)).astype(np.float32))
     with torch.no_grad():
@@ -77,11 +77,23 @@ def test_bf16_config_tracks_f32_on_the_same_weights():
     torch.testing.assert_close(b, a, atol=0.1, rtol=0.05)
 
 
+def test_default_device_is_the_card_and_never_falls_back_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        masknet.MaskNet(masknet.MaskNetConfig(**SMALL))
+    with pytest.raises(RuntimeError, match="GPU"):
+        masknet.GroupLayerNorm(2, 16, torch.float32)
+    with pytest.raises(RuntimeError, match="GPU"):
+        masknet.MaskNet(masknet.MaskNetConfig(**SMALL), device="cuda")
+    built = masknet.MaskNet(masknet.MaskNetConfig(**SMALL), device="cpu")
+    assert {p.device.type for p in built.parameters()} == {"cpu"}
+
+
 def test_init_is_reproducible_from_the_generator():
     cfg = masknet.MaskNetConfig(**SMALL)
-    a = masknet.MaskNet(cfg, generator=torch.Generator().manual_seed(7)).state_dict()
-    b = masknet.MaskNet(cfg, generator=torch.Generator().manual_seed(7)).state_dict()
-    c = masknet.MaskNet(cfg, generator=torch.Generator().manual_seed(8)).state_dict()
+    a = masknet.MaskNet(cfg, device="cpu", generator=torch.Generator().manual_seed(7)).state_dict()
+    b = masknet.MaskNet(cfg, device="cpu", generator=torch.Generator().manual_seed(7)).state_dict()
+    c = masknet.MaskNet(cfg, device="cpu", generator=torch.Generator().manual_seed(8)).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["hidden.weight"], c["hidden.weight"])
     # lecun-normal scale: std ≈ 1/sqrt(fan_in)

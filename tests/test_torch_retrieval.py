@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_util import assert_same_topk
+from torch_port_util import assert_same_collapse, assert_same_topk, collapse_to_dict
 
 from the_algorithm_tpu.ops import retrieval as jr
 from the_algorithm_tpu.ops import sparse as js
@@ -135,6 +135,48 @@ def test_static_width_padding_when_the_scan_is_narrower_than_x():
     assert got[0].shape == (Q, 40)
     assert np.all(got[0][:, 32:] == PAD_ID) and np.all(np.isneginf(got[1][:, 32:]))
     assert_same_topk(*got, *_jax(index_np, src_np, max_results=40))
+
+
+def _out_of_range_sources():
+    """Sources whose valid slots hold ids outside [0, C): -1 (JAX's gather
+    reads row C-1), C+3 (clamped to C-1) and -(C+2) (wrapped to -2, clamped
+    to 0)."""
+    ids, scores = make_sources()
+    ids[1, :3] = [-1, C + 3, -(C + 2)]
+    ids[2, 0] = -1
+    ids[3, -1] = C + 3
+    return ids, scores
+
+
+@pytest.mark.parametrize("algo", ALGOS, ids=lambda a: a.value)
+def test_out_of_range_cluster_ids_read_the_rows_jax_reads(algo):
+    index_np, src_np = make_index(), _out_of_range_sources()
+    got = _port(index_np, src_np, max_results=X, algorithm=algo)
+    assert_same_topk(*got, *_jax(index_np, src_np, algorithm=algo))
+    # the same as sources that name JAX's rows outright
+    named = src_np[0].copy()
+    named[1, :3] = [C - 1, C - 1, 0]
+    named[2, 0] = C - 1
+    named[3, -1] = C - 1
+    assert_same_topk(*got, *_port(index_np, (named, src_np[1]), max_results=X, algorithm=algo))
+    # the numpy oracle skips such ids instead; the port follows JAX, not it
+    assert _oracle(index_np, src_np, 1, max_results=X, algorithm=algo) != _oracle(
+        index_np, (named, src_np[1]), 1, max_results=X, algorithm=algo)
+
+
+def test_out_of_range_cluster_ids_accumulate_as_jax_accumulates():
+    index_np, src_np = make_index(), _out_of_range_sources()
+    got = retrieval.accumulate_candidates(
+        ClusterTweetIndex(*(torch.from_numpy(a) for a in index_np)),
+        SparseEmbedding(*(torch.from_numpy(a) for a in src_np)))
+    index = jr.ClusterTweetIndex(*(jnp.asarray(a) for a in index_np))
+    want = jax.jit(jax.vmap(lambda s: jr.accumulate_candidates(index, s)))(
+        js.SparseEmbedding(*(jnp.asarray(a) for a in src_np)))
+    for q in range(Q):
+        assert_same_collapse(
+            collapse_to_dict(*(g[q].numpy() for g in got)),
+            collapse_to_dict(*(np.asarray(w[q]) for w in want)),
+        )
 
 
 @pytest.mark.parametrize("algo", ALGOS, ids=lambda a: a.value)

@@ -116,3 +116,31 @@ def test_rejects_what_the_kernel_does_not_take(ids, values):
     with pytest.raises(ValueError):
         seg_scan.run_collapse_sorted(ids, *values)
 
+
+
+SHAPES = [seg_scan.SHAPE, seg_scan.TileShape(2040, 3, 1), seg_scan.TileShape(4088, 1, 4)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 4095, 4097, 20_000, 32_705, 200_000])
+@pytest.mark.parametrize("Q", [1, 5, 32, 256, 1000])
+def test_plan_covers_every_slot_within_the_kernels_limits(Q, W, k):
+    for shape in SHAPES:
+        cluster, tile, passes, stages, threads, smem = plan = seg_scan._plan(Q, W, k, 132, shape)
+        assert 1 <= cluster <= seg_scan.MAX_CLUSTER and cluster <= max(1, -(-shape.per_sm * 132 // Q)), plan
+        if Q >= shape.per_sm * 132:
+            assert cluster == 1, plan  # enough rows to give every SM its CTAs
+        # the tiles of the passes cover the row, and no CTA is left without a slot
+        assert tile % 4 == 0 and 4 <= tile <= shape.tile_max, plan
+        assert cluster * tile * passes >= W > (cluster - 1) * tile * passes, plan
+        # 8 slots a thread, over the tile and the up to 3 slots before it
+        assert threads % 32 == 0 and 32 <= threads <= seg_scan.MAX_THREADS and 8 * threads >= tile + 3, plan
+        assert stages == shape.stages and smem == stages * (1 + k) * threads * 32 <= seg_scan.SMEM_PER_CTA, plan
+
+
+@pytest.mark.parametrize("args", [(0, 5, 2), (5, 0, 2), (5, 5, 0), (5, 5, 4)])
+def test_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        seg_scan._plan(*args, 132)
+    with pytest.raises(ValueError):
+        seg_scan._plan(5, 5, 2, 132, seg_scan.TileShape(4090, 2, 1))  # not a multiple of 4

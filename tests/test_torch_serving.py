@@ -26,13 +26,13 @@ WEIGHTS = torch.tensor([1.0, 2.0, -3.0])
 
 
 def _save_version(root, version, seed):
-    model = masknet.MaskNet(SMALL, generator=torch.Generator().manual_seed(seed))
+    model = masknet.MaskNet(SMALL, device="cpu", generator=torch.Generator().manual_seed(seed))
     save_params_npz(f"{root}/ranker/{version}", {k: v.numpy() for k, v in model.state_dict().items()})
     return model
 
 
 def _build(params):
-    model = masknet.MaskNet(SMALL)
+    model = masknet.MaskNet(SMALL, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
     return masknet.score_fn(model, WEIGHTS)
 

@@ -108,7 +108,7 @@ def test_slice_end_to_end_matches_jax(tmp_path):
     save_params_npz(str(tmp_path / "ranker" / "1"), {k: v.numpy() for k, v in sd.items()})
 
     def build(arrays):
-        model = masknet.MaskNet(masknet.MaskNetConfig(**mcfg))
+        model = masknet.MaskNet(masknet.MaskNetConfig(**mcfg), device="cpu")
         model.load_state_dict({k: torch.from_numpy(v) for k, v in arrays.items()})
         return masknet.score_fn(model, masknet.DEFAULT_HEAD_WEIGHTS)
 

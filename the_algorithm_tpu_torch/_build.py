@@ -38,8 +38,8 @@ _L = ctypes.c_longlong
 # C signatures of the entry points (csrc/*.cu); every pointer and the stream
 # are void*, or ctypes would pass a 64-bit pointer as a 32-bit int
 _SIGNATURES = {
-    # ids, v0, v1, v2, out_ids, o0, o1, o2, Q, W, k, stream
-    "run_collapse_sorted": [_P] * 8 + [_I, _I, _I, _P],
+    # ids, v0, v1, v2, out_ids, o0, o1, o2, Q, W, k, cluster, tile, passes, stages, threads, smem, stream
+    "run_collapse_sorted": [_P] * 8 + [_I] * 9 + [_P],
     # ids, B, R, k, t0, t1, t2, o0, o1, o2, rb0, rb1, rb2, rows, piece, stages, grid, smem, stream
     "row_gather_ring": [_P, _I, _I, _I] + [_P] * 6 + [_L] * 3 + [_I, _L] + [_I] * 3 + [_P],
     # ids, B, R, k, t0, t1, t2, o0, o1, o2, rb0, rb1, rb2, num_sms, stream
@@ -47,9 +47,9 @@ _SIGNATURES = {
 }
 
 
-def _sources():
+def _sources(suffixes=(".cu",)):
     return sorted(
-        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cu")
+        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(suffixes)
     )
 
 
@@ -65,7 +65,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources((".cu", ".cuh")):  # an edited header rebuilds too
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libkernels_{h.hexdigest()[:16]}.so")

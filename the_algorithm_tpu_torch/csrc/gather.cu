@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int MAX_TABLES = 3;
@@ -64,47 +66,12 @@ __device__ __forceinline__ int checked_id(const int* ids, long long row, int R) 
 
 // ---- the TMA ring ----------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_arm(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// global -> shared, completion counted in bytes on the stage's mbarrier (a CTA
-// launched without a cluster is a cluster of one, so its own shared::cta
-// address is a valid shared::cluster address)
-__device__ __forceinline__ void bulk_load(uint32_t dst, const char* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(char* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(src),
-               "r"(bytes)
-               : "memory");
-}
+using tma::bar_arm;
+using tma::bar_init;
+using tma::bar_wait;
+using tma::bulk_load;
+using tma::bulk_store;
+using tma::smem_addr;
 
 // One piece: `len` bytes at byte `off` of row `row` of table `table`.
 struct Piece {
@@ -148,7 +115,7 @@ __global__ void __launch_bounds__(32) row_gather_ring_kernel(const int* __restri
 
   if (lane == 0) {
     for (int s = 0; s < stages; ++s) bar_init(smem_addr(bars + s));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    tma::bar_init_fence();
   }
   __syncwarp();
 
@@ -200,7 +167,7 @@ __global__ void __launch_bounds__(32) row_gather_ring_kernel(const int* __restri
         off += rb;
       }
     }
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    tma::bulk_commit();
   };
 
   for (long long i = 0; i < n && i < stages; ++i) load(i);
@@ -211,14 +178,14 @@ __global__ void __launch_bounds__(32) row_gather_ring_kernel(const int* __restri
     }
     // refill the stage drained one step ago, once its stores have read it
     if (i >= 1 && i - 1 + stages < n) {
-      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      if (lane == 0) tma::bulk_wait_read<1>();
       __syncwarp();
       load(i - 1 + stages);
     }
   }
   // the stores must have read the ring before the CTA exits; their writes
   // land before the grid completes
-  if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  if (lane == 0) tma::bulk_wait_read<0>();
 }
 
 // ---- the register path -----------------------------------------------------

@@ -44,6 +44,15 @@ class MaskNetConfig:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
 
+def _device(device) -> torch.device:
+    """The device to build on: the card unless the caller names another.
+    There is no fallback to the CPU: with no card, asking for it raises."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("MaskNet builds on the GPU by default and none is available: pass device='cpu'")
+    return device
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
     """flax's default kernel init: truncated normal (±2σ) of variance 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # σ of the ±2σ truncation
@@ -53,10 +62,12 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Gener
 class GroupLayerNorm(nn.Module):
     """Layer norm over the last axis of [B, G, D] with a (G, D) affine —
     flax ``LayerNorm(reduction_axes=-1, feature_axes=(-2, -1))``. Statistics
-    and affine run in f32; the result is cast to ``dtype``."""
+    and affine run in f32; the result is cast to ``dtype``. Built on the card
+    unless ``device`` names another."""
 
     def __init__(self, groups: int, dim: int, dtype: torch.dtype, device=None):
         super().__init__()
+        device = _device(device)
         self.weight = nn.Parameter(torch.ones(groups, dim, device=device))
         self.bias = nn.Parameter(torch.zeros(groups, dim, device=device))
         self.dtype = dtype
@@ -69,7 +80,8 @@ class GroupLayerNorm(nn.Module):
 class MaskNet(nn.Module):
     """Parallel MaskNet with multi-task sigmoid heads: features [B, F] f32 →
     logits [B, H] f32. Parameters are f32; ``config.dtype`` sets the
-    compute type of the products."""
+    compute type of the products. Built on the card unless ``device`` names
+    another; with no card and no ``device``, it raises."""
 
     def __init__(
         self,
@@ -79,6 +91,7 @@ class MaskNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        device = _device(device)
         self.config = config
         cfg = config
         Fdim, G, D, A = cfg.num_features, cfg.mask_blocks, cfg.block_dim, cfg.aggregation_dim

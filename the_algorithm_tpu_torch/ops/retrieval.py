@@ -126,9 +126,13 @@ def fetch_rows(
 
     One :func:`row_gather` launch fetches all three tables. With a cap below
     the index's M the whole rows are fetched and then sliced, as in the JAX
-    package.
+    package. A source id outside [0, C) that is not PAD_ID reads the row the
+    JAX package's gather reads: a negative id counts from the end (+C), and
+    the result is clamped to [0, C-1]; such a slot keeps its score.
     """
+    C = index.num_clusters
     safe_cluster = torch.where(source.valid_mask(), source.ids, 0)
+    safe_cluster = torch.where(safe_cluster < 0, safe_cluster + C, safe_cluster).clamp_(0, C - 1)
     rows = row_gather(safe_cluster, index.tweet_ids, index.scores, index.timestamps)
     M = index.tweets_per_cluster
     if max_top_tweets_per_cluster is not None and max_top_tweets_per_cluster < M:
