@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +19,17 @@ Phases, each printing its result on its own line:
    host clock, taken before any profiler session (a process that has run
    some dozens of them dispatches more slowly); oracle parity on 8 queries;
    recall@100 against the exact full-corpus scan;
-4. kernels: each hand-written kernel against its plain PyTorch version on
+4. candidates: the For You candidate sources at ``bench.py``'s shape
+   (``data/foryou_world.py``): the earlybird in-network scan (R=32 users of
+   a 262,144-doc index, 700 results), UTEG (R=32 users x 8 seeds, 400
+   results) and UTG (256 source tweets, 200 results), one counted batch
+   each with the kernels' launches; the graphs built on the card against
+   the per-event append loop; earlybird against the port on the CPU (the
+   same ranking up to near-ties), UTEG on every user and UTG on 16 sources against numpy dict
+   oracles; batches/s on the host clock, then a profile of each batch; the
+   kernels against their plain versions at these paths' shapes (their
+   sorted entries and their row fetches) and on seeded rows of those shapes;
+5. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the SANN batch gives it, with both times (CUDA
    events around the call, and device time alone from ``torch.profiler``)
    and the share of each kernel's bytes bound; run_collapse's device time
@@ -32,13 +42,13 @@ Phases, each printing its result on its own line:
    over Q, W and k on seeded sorted rows, against its plain version, with
    both times, TB/s, the share of its bound, and the device time of
    ``copy_`` moving the same bytes;
-5. ranking: a MaskNet at the flagship width (F=6000, 15 heads, G=4, D=512,
+6. ranking: a MaskNet at the flagship width (F=6000, 15 heads, G=4, D=512,
    A=128, trunk (256, 128)) from a seeded generator, saved as a registry
    version and served over HTTP in bf16; every answer is held against a
    direct f32 forward of the same weights.
 
-Then one JSON line with each kernel's launches, error and times, and, as the
-last line, ``{"ok": true, "device": {...}}``. Any failure raises, so the
+Then one JSON line with each kernel's launches (in all, and by path: SANN,
+UTEG, UTG), error and times, and, as the last line, ``{"ok": true, "device": {...}}``. Any failure raises, so the
 script exits non-zero and prints no result; it needs no network.
 """
 
@@ -58,11 +68,13 @@ import torch
 from torch.autograd import DeviceType
 
 from the_algorithm_tpu_torch import _build
-from the_algorithm_tpu_torch.data import sann_world
+from the_algorithm_tpu_torch.data import foryou_world, sann_world
+from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.models import masknet
 from the_algorithm_tpu_torch.ops import gather, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
+from the_algorithm_tpu_torch.search import earlybird
 from the_algorithm_tpu_torch.serving.batcher import BatcherConfig
 from the_algorithm_tpu_torch.serving.model_registry import ModelRegistry, save_params_npz
 from the_algorithm_tpu_torch.serving.server import InferenceServer
@@ -82,6 +94,16 @@ SCORE_RTOL, SCORE_ATOL = 2e-2, 1e-8
 LOGIT_ATOL = 5e-2
 # H100 SXM device memory rate (NVIDIA's data sheet): a kernel's bytes bound
 HBM_BYTES_PER_S = 3.35e12
+# the candidate sources as bench.py's For You phase runs them (bench.py:497-500)
+CAND_R = 32  # users in a batch (bench.py's largest)
+EB_RESULTS, UTEG_RESULTS, UTG_RESULTS = 700, 400, 200
+UTG_CHECKED = 16  # UTG sources held against the numpy oracle
+# earlybird on the card against the port on the CPU: float32 scores whose sums
+# (the 184-feature dot product above all) run in another order on each device;
+# docs whose scores lie within twice this of each other may trade places
+EB_RTOL, EB_ATOL = 1e-5, 1e-5
+# UTEG/UTG scores: sums of whole numbers (exact), and one f32 division and square root
+GRAPH_RTOL = 1e-6
 
 
 def bound_ms(moved_bytes: int) -> float:
@@ -149,12 +171,14 @@ def time_gather(ids, tables, label):
     ms, plain_ms = timed_pair(kernel, plain)
     dev_ms, plain_dev_ms = timed_pair(kernel, plain, clock=device_ms)
     moved = 2 * ids.numel() * sum(t.shape[1] * t.element_size() for t in tables)  # rows read + written
+    bound = bound_ms(moved)
     print(f"kernel row_gather: {label}, {moved / 1e6:.1f} MB moved, bit-exact; device "
-          f"{dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s) vs index_select {plain_dev_ms:.4f} ms "
-          f"({moved / plain_dev_ms / 1e9:.2f} TB/s); events {ms:.4f} ms vs {plain_ms:.4f} ms")
+          f"{dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s, {100 * bound / dev_ms:.1f}% of its {bound:.4f} ms "
+          f"bound) vs index_select {plain_dev_ms:.4f} ms ({moved / plain_dev_ms / 1e9:.2f} TB/s); events "
+          f"{ms:.4f} ms vs {plain_ms:.4f} ms")
     # the plain version is one index_select per table: the library's own call
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
-                bound_ms=bound_ms(moved), bound_by="bytes", library_ms=plain_dev_ms)
+                bound_ms=bound, bound_by="bytes", library_ms=plain_dev_ms)
 
 
 def phase_device():
@@ -270,6 +294,12 @@ def time_tile_shapes(entries, label):
 # run_collapse's sweep (Q, W, k) on seeded rows, the SANN shape first
 COLLAPSE_SWEEP = [(256, 20_000, 2), (32, 20_000, 2), (1024, 20_000, 2), (256, 20_000, 1), (256, 20_000, 3),
                   (16, 200_000, 2)]
+# run_collapse at the candidate sources' shapes on seeded rows: UTEG [R, 8 seeds x 32],
+# UTG [B, 128 users x 32] with one sum and with the JAX package's two
+CANDIDATE_COLLAPSE_SWEEP = [(32, 256, 2), (256, 4096, 1), (256, 4096, 2)]
+# the top-K of each path: (rows, row width, k, path)
+TOP_K_SHAPES = [(256, 20_000, 200, "SANN"), (32, 1 << 18, 700, "earlybird in-network"), (32, 256, 256, "UTEG"),
+                (256, 4096, 200, "UTG")]
 # the neighbours of seg_scan.SHAPE: most slots to a tile, stages, CTAs aimed at per SM
 TILE_NEIGHBOURS = [(2040, 2, 1), (2040, 3, 1), (2728, 3, 1), (3000, 2, 1), (4088, 1, 1), (4088, 2, 2)]
 
@@ -404,6 +434,238 @@ def phase_retrieval(shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, i
     return launches
 
 
+def ring_loop(shape, rows, *values):
+    """The JAX package's per-event ring append (``uteg.py:73-79``) in numpy:
+    the reference the port's one-pass append is held to."""
+    tables = [np.full(shape, PAD_ID, np.int32)] + [np.zeros(shape, np.int32) for _ in values[1:]]
+    for i, r in enumerate(rows):
+        for t, v in zip(tables, values):
+            t[r, 1:] = t[r, :-1]
+            t[r, 0] = v[i]
+    return tables
+
+
+def uteg_oracle(tables, seeds, k):
+    """One user's UTEG list from numpy dicts: score = Σ seed weight (1) ·
+    type weight over the seeds' engagements, proof = their count, ranked by
+    score, then id (``lax.top_k``'s order over id-sorted slots)."""
+    tweets, types, _ = tables
+    score, proof = {}, {}
+    for s in seeds:
+        for t, ty in zip(tweets[s], types[s]):
+            if t != PAD_ID:
+                score[t] = score.get(t, 0.0) + float(uteg.DEFAULT_TYPE_WEIGHTS[ty])
+                proof[t] = proof.get(t, 0) + 1
+    ranked = sorted(score, key=lambda t: (-np.float32(score[t]), t))[:k]
+    return ranked, [np.float32(score[t]) for t in ranked], [proof[t] for t in ranked]
+
+
+def utg_oracle(right_users, left_tweets, src, k):
+    """One source's UTG list from numpy dicts: cooc(c) = engagements of c by
+    the users who engaged ``src``; score = cooc / sqrt(deg(src) · deg(c)) in
+    float32; ranked by score, then id."""
+    cooc = {}
+    for u in right_users[src]:
+        if u != PAD_ID:
+            for t in left_tweets[u]:
+                if t != PAD_ID and t != src:
+                    cooc[t] = cooc.get(t, 0) + 1
+    deg = np.maximum((right_users != PAD_ID).sum(1), 1).astype(np.float32)
+    score = {t: np.float32(c) / np.sqrt(deg[src] * deg[t]) for t, c in cooc.items()}
+    ranked = sorted(score, key=lambda t: (-score[t], t))[:k]
+    return ranked, [score[t] for t in ranked], [cooc[t] for t in ranked]
+
+
+def check_same_ranking(ids, scores, want_ids, want_scores, rtol, atol, what):
+    """Two [R, K] rankings (numpy) of float32 scores summed in different
+    orders agree: scores rank by rank within ``rtol``/``atol``; ids equal at
+    every rank whose score stands more than twice the tolerance from its
+    neighbours'; elsewhere near-tied docs may trade places, or trade the last
+    kept place for the first dropped one, and an id in both lists has the
+    same score in both. Returns the number of ranks whose ids differ."""
+    require(ids.shape == want_ids.shape and np.array_equal(ids == PAD_ID, want_ids == PAD_ID),
+            f"{what}: not the same number of results")
+    require(np.allclose(scores, want_scores, rtol=rtol, atol=atol), f"{what}: scores differ")
+    moved = 0
+    for r in range(ids.shape[0]):
+        n = int((want_ids[r] != PAD_ID).sum())
+        a, b = ids[r, :n], want_ids[r, :n]
+        s = want_scores[r, :n].astype(np.float64)
+        tol = 2 * (atol + rtol * np.abs(s))
+        near = np.zeros(n, bool)
+        near[1:] |= np.abs(np.diff(s)) <= tol[1:]
+        near[:-1] |= np.abs(np.diff(s)) <= tol[:-1]
+        got_s = dict(zip(a.tolist(), scores[r, :n].tolist()))
+        want_s = dict(zip(b.tolist(), s.tolist()))
+        for t in got_s.keys() & want_s.keys():
+            require(abs(got_s[t] - want_s[t]) <= atol + rtol * abs(want_s[t]), f"{what}: id {t} scored apart")
+        for t in got_s.keys() ^ want_s.keys():  # only across the cut of a full list
+            require(n == ids.shape[1] and abs(got_s.get(t, want_s.get(t)) - s[-1]) <= tol[-1],
+                    f"{what}: id {t} in one list only, away from the cut")
+        clear = ~near
+        if n == ids.shape[1] and a[-1] not in want_s:
+            clear[-1] = False  # the last kept place went to a doc the other list dropped
+        require(bool((a == b)[clear].all()), f"{what} row {r}: ids differ at a rank clear of its neighbours")
+        moved += int((a != b).sum())
+    return moved
+
+
+def check_list(got, want, k, what, rtol):
+    """A [k] result row (ids, scores, counts) against an oracle's ranked list:
+    ids and counts exact, scores within ``rtol``, PAD_ID / -inf / 0 after."""
+    ids, scores, counts = (t.cpu().numpy() for t in got)
+    w_ids, w_scores, w_counts = want
+    n = len(w_ids)
+    require(ids.shape == (k,) and ids[:n].tolist() == list(w_ids) and bool((ids[n:] == PAD_ID).all()),
+            f"{what}: ids differ from the oracle's")
+    require(counts[:n].tolist() == list(w_counts) and bool((counts[n:] == 0).all()),
+            f"{what}: counts differ from the oracle's")
+    require(np.allclose(scores[:n], w_scores, rtol=rtol, atol=0) and bool(np.isneginf(scores[n:]).all()),
+            f"{what}: scores differ from the oracle's")
+
+
+def phase_candidates(dev):
+    """The For You candidate sources at bench.py's shape: the earlybird
+    in-network scan, UTEG and UTG, each as one batch on the card."""
+    t0 = time.perf_counter()
+    s = foryou_world.FULL
+    world = foryou_world.build(s, users=CAND_R)
+    index = foryou_world.earlybird_index(world, dev)
+    graph = foryou_world.engagement_graph(world, dev)
+    right = foryou_world.right_index(world, dev)
+    query = foryou_world.in_network_query().to(dev)
+    follows = torch.from_numpy(world.follows).to(dev)
+    seeds = torch.from_numpy(world.seeds[np.arange(CAND_R) % s.num_users]).to(dev)
+    weights = torch.ones(seeds.shape, device=dev)
+    sources = torch.from_numpy(world.utg_sources).to(dev)
+    torch.cuda.synchronize()
+    print(f"candidates: For You world (earlybird {s.eb_docs} docs x {len(earlybird.DOC_FEATURES)} features, "
+          f"UTEG {s.num_users} users x {s.uteg_width}, UTG {s.tweet_space} tweets x {s.utg_width}, "
+          f"{world.ev_users.shape[0]} events) built with numpy and on the card in {time.perf_counter() - t0:.1f} s "
+          "(set-up)")
+
+    batches = {
+        "earlybird": lambda: earlybird.search_in_network_batch(index, query, follows, max_results=EB_RESULTS),
+        "uteg": lambda: uteg.recommend(graph, seeds, weights, max_results=UTEG_RESULTS),
+        "utg": lambda: graphjet.related_tweets(graph, right, sources, max_results=UTG_RESULTS),
+    }
+    # the main paths, counted: one batch each
+    outs, launches = {}, {}
+    for name, fn in batches.items():
+        seg_scan.run_collapse_sorted.launches = 0
+        gather.row_gather.launches = 0
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        launches[name] = {"run_collapse": seg_scan.run_collapse_sorted.launches,
+                          "row_gather": gather.row_gather.launches}
+    print(f"candidates: launches per batch {launches}")
+    require(launches["uteg"] == {"run_collapse": 1, "row_gather": 1}, f"UTEG launches {launches['uteg']}")
+    require(launches["utg"] == {"run_collapse": 1, "row_gather": 2}, f"UTG launches {launches['utg']}")
+
+    # the graphs built on the card equal the per-event loop
+    t0 = time.perf_counter()
+    want = ring_loop((s.num_users, s.uteg_width), world.ev_users, world.ev_tweets, world.ev_types, world.ev_ts)
+    require(all(np.array_equal(g.cpu().numpy(), w) for g, w in zip(graph, want)), "UTEG graph != per-event loop")
+    left_np = want
+    want = ring_loop((s.tweet_space, s.utg_width), world.ev_tweets, world.ev_users, world.ev_ts)
+    require(all(np.array_equal(g.cpu().numpy(), w) for g, w in zip(right, want)), "UTG index != per-event loop")
+    right_np = want
+    print(f"candidates: UTEG graph and UTG index built on the card equal the per-event append loop "
+          f"({time.perf_counter() - t0:.1f} s of numpy)")
+
+    # earlybird: the card against the port on the CPU, same index and follows
+    ids, scores = outs["earlybird"]
+    cpu_ids, cpu_scores = earlybird.search_in_network_batch(
+        foryou_world.earlybird_index(world, "cpu"), foryou_world.in_network_query(), torch.from_numpy(world.follows),
+        max_results=EB_RESULTS)
+    ids, scores = ids.cpu(), scores.cpu()
+    require(ids.shape == (CAND_R, EB_RESULTS), f"earlybird ids of shape {tuple(ids.shape)}")
+    moved = check_same_ranking(ids.numpy(), scores.numpy(), cpu_ids.numpy(), cpu_scores.numpy(), EB_RTOL, EB_ATOL,
+                               "earlybird on the card against the CPU run")
+    real = ids != PAD_ID
+    require(bool(real[:, 0].all()) and bool(torch.isfinite(scores[real]).all())
+            and bool((scores[:, :-1] >= scores[:, 1:]).all()), "earlybird results not ranked")
+    err = float((scores[real] - cpu_scores[real]).abs().max())
+    print(f"candidates: earlybird in-network R={CAND_R} -> [{CAND_R}, {EB_RESULTS}], {int(real.sum())} hits, the "
+          f"CPU run's ranking ({moved} ranks hold another id, all within near-ties), max |score diff| {err:.3g} "
+          f"(rtol {EB_RTOL}, atol {EB_ATOL})")
+
+    # UTEG and UTG against numpy dict oracles
+    k = min(UTEG_RESULTS, s.seeds * s.uteg_width)
+    for r in range(CAND_R):
+        check_list([t[r] for t in outs["uteg"]], uteg_oracle(left_np, world.seeds[r % s.num_users], k), k,
+                   f"UTEG user {r}", GRAPH_RTOL)
+    hits = int((outs["uteg"][0] != PAD_ID).sum())
+    print(f"candidates: UTEG R={CAND_R} x {s.seeds} seeds -> [{CAND_R}, {k}], {hits} candidates, all {CAND_R} users "
+          f"equal the numpy oracle (ids, proof exact; scores rtol {GRAPH_RTOL})")
+    k = min(UTG_RESULTS, s.utg_width * s.uteg_width)
+    for b in range(UTG_CHECKED):
+        check_list([t[b] for t in outs["utg"]], utg_oracle(right_np[0], left_np[0], int(world.utg_sources[b]), k), k,
+                   f"UTG source {b}", GRAPH_RTOL)
+    hits = int((outs["utg"][0] != PAD_ID).sum())
+    print(f"candidates: UTG B={s.utg_sources} sources -> [{s.utg_sources}, {k}], {hits} candidates, {UTG_CHECKED} "
+          f"sources equal the numpy oracle (ids, co-occurrence exact; scores rtol {GRAPH_RTOL})")
+
+    # host clock, before this phase's profiler sessions
+    reps = 20
+    for name, fn in batches.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        print(f"candidates: {name} {1 / dt:.1f} batches/s ({1e3 * dt:.3f} ms a batch; host clock, {reps} batches; "
+              "not a benchmark)")
+    for name, fn in batches.items():
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            fn()
+            torch.cuda.synchronize()
+        print(f"candidates: {name} profile, one batch (torch.profiler, top 10 by device time):")
+        print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10))
+
+    # the kernels at the shapes these paths give them, and on seeded rows
+    entries = retrieval.sort_by_id(*uteg.engagement_entries(graph, seeds, weights))
+    time_collapse(entries, "UTEG batch's sorted entries")
+    flat, ones, users = graphjet.cooccurrence_entries(graph, right, sources)
+    time_collapse(retrieval.sort_by_id(flat, ones), "UTG batch's sorted entries")
+    time_collapse(retrieval.sort_by_id(flat, ones, ones), "UTG batch's sorted entries, the JAX package's two sums")
+    for i, (Q, W, kk) in enumerate(CANDIDATE_COLLAPSE_SWEEP):
+        time_collapse(collapse_entries(dev, Q, W, kk, 100 + i), "seeded rows")
+    time_gather(uteg.safe_rows(seeds, s.num_users).reshape(-1), tuple(graph),
+                f"UTEG seed fetch, {seeds.numel()} rows x 3 tables [{s.num_users}, {s.uteg_width}] int32")
+    hop1 = gather.jax_rows(sources, s.tweet_space)
+    time_gather(hop1, (right.user_ids, right.timestamps),
+                f"UTG first hop, {hop1.numel()} rows x 2 tables [{s.tweet_space}, {s.utg_width}] int32")
+    hop2 = gather.jax_rows(torch.where(users != PAD_ID, users, 0), s.num_users).reshape(-1)
+    time_gather(hop2, (graph.tweet_ids, graph.timestamps),
+                f"UTG second hop, {hop2.numel()} rows x 2 tables [{s.num_users}, {s.uteg_width}] int32")
+    for Q, N, k, label in TOP_K_SHAPES:
+        time_top_k(dev, Q, N, k, label)
+    torch.cuda.empty_cache()
+    return {name: launches[name] for name in ("uteg", "utg")}
+
+
+def time_top_k(dev, Q, N, k, label):
+    """retrieval.top_k (lax.top_k's order among ties) against torch.topk on
+    seeded [Q, N] float32 rows with ties (values in steps of 1/64): the same
+    values, both device times, and that of the other way to keep the order,
+    a stable descending sort of the whole row (what top_k does up to
+    SMALL_SORT slots)."""
+    g = torch.Generator(device=dev).manual_seed(Q + N + k)
+    x = torch.randint(0, 1 << 12, (Q, N), generator=g, device=dev).float() / 64
+    values, idx = retrieval.top_k(x, k)
+    _, sort_idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    require(torch.equal(values, torch.topk(x, k, dim=-1).values), f"top_k values differ from torch.topk's at {label}")
+    require(torch.equal(idx, sort_idx[:, :k]), f"top_k indices differ from a stable sort's at {label}")
+    ms, plain_ms = timed_pair(lambda: retrieval.top_k(x, k), lambda: torch.topk(x, k, dim=-1), clock=device_ms)
+    sort_ms = device_ms(lambda: torch.sort(x, dim=-1, descending=True, stable=True), 50)
+    print(f"top_k: {label} [{Q}, {N}] k={k}: device {ms:.4f} ms in lax.top_k's order vs torch.topk {plain_ms:.4f} ms, "
+          f"stable sort of the row {sort_ms:.4f} ms")
+
+
 def phase_ranking(dev):
     base = dict(num_features=6000, num_heads=15, mask_blocks=4, block_dim=512,
                 aggregation_dim=128, head_hidden=(256, 128))
@@ -465,7 +727,8 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     world = build_world(dev)
-    launches = phase_retrieval(*world)
+    by_path = {"sann": phase_retrieval(*world)}
+    by_path.update(phase_candidates(dev))
     kernels = phase_kernels(world[0], world[6], world[7])
     phase_gather_sweep(dev)
     phase_collapse_sweep(dev)
@@ -474,9 +737,11 @@ def main() -> int:
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
     }
+    # launches: the counted batches of every path together; the times are at the SANN shapes
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-         **kernels[name]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": sum(n[name] for n in by_path.values()),
+         "launches_by_path": {path: n[name] for path, n in by_path.items()}, **kernels[name]}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

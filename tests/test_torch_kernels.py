@@ -12,10 +12,12 @@ import pytest
 import torch
 from torch_port_util import assert_same_topk, cuda_device  # noqa: F401
 
-from the_algorithm_tpu_torch.data import sann_world
+from the_algorithm_tpu_torch.data import foryou_world, sann_world
+from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.ops import gather, seg_scan
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
+from the_algorithm_tpu_torch.search import earlybird
 from the_algorithm_tpu_torch.simclusters import ann
 
 pytestmark = pytest.mark.gpu
@@ -57,11 +59,12 @@ def _collapse_rows(rng, Q, W, tile):
 # unaligned W = 3 and 4,097 take the kernel's scalar head and tail), around
 # one pass of a full cluster (5 rows get 8 CTAs each), at SANN and at ten
 # times it; one row and 1,000 rows (one CTA each); an offset of 1 slot puts
-# every row off 16-byte alignment
+# every row off 16-byte alignment; UTEG's [32, 256] (clusters of 5 CTAs of
+# one warp) and UTG's [256, 4,096] (one CTA a row, two passes)
 _REACH = seg_scan.MAX_CLUSTER * seg_scan.SHAPE.tile_max
 COLLAPSE_CASES = [(5, 1, 0), (5, 3, 0), (5, 2048, 0), (5, 4095, 0), (5, 4096, 0), (5, 4097, 0),
                   (5, _REACH - 1, 0), (5, _REACH + 1, 0), (5, 20_000, 0), (5, 200_000, 0), (1, 20_000, 0),
-                  (1000, 4097, 0), (5, 20_000, 1)]
+                  (1000, 4097, 0), (5, 20_000, 1), (32, 256, 0), (256, 4096, 0)]
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -143,6 +146,9 @@ GATHER_CASES = {
     "4-byte words, k=3": (1000, [(7, np.float32), (3, np.int32), (45, np.float32)], 20_001, "rand", "words"),
     "4-byte words, one word": (1000, [(1, np.float32)], 5000, "rand", "words"),
     "4-byte words, wide rows": (64, [(32_769, np.float32)], 100, "rand", "words"),
+    "UTEG seed fetch, 128-byte rows": (16_384, [(32, np.int32)] * 3, 256, "rand", "ring"),
+    "UTG two-hop fetch, 128-byte rows": (16_384, [(32, np.int32)] * 2, 32_768, "rand", "ring"),
+    "UTG source fetch, 512-byte rows": (32_768, [(128, np.int32)] * 2, 256, "rand", "ring"),
 }
 
 
@@ -196,3 +202,32 @@ def test_sann_batch_on_the_card_matches_the_cpu(cuda_device):
         src = SparseEmbedding(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_scores).to(dev))
         out[dev.type] = [t.cpu().numpy() for t in ann.get_tweet_candidates_batch(index, src, cfg)]
     assert_same_topk(*out["cuda"], *out["cpu"])
+
+
+def test_candidate_sources_on_the_card_match_the_cpu(cuda_device):
+    """The earlybird in-network scan, UTEG and UTG on a small For You world.
+    Earlybird's float32 sums run in another order on each device, so its
+    lists agree as score-aligned sets (rtol 1e-5, atol 1e-5); the graph
+    scores are exact sums and one division: ids (in order) and counts equal
+    the CPU run's, scores rtol 1e-5."""
+    shape = foryou_world.ForYouShape(num_users=2048, num_authors=256, eb_docs=16_384, tweet_space=4096,
+                                     utg_sources=64)
+    world = foryou_world.build(shape, users=8)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        graph = foryou_world.engagement_graph(world, dev)
+        right = foryou_world.right_index(world, dev)
+        ids, scores = earlybird.search_in_network_batch(
+            foryou_world.earlybird_index(world, dev), foryou_world.in_network_query().to(dev),
+            torch.from_numpy(world.follows).to(dev), max_results=300)
+        seeds = torch.from_numpy(world.seeds[:8]).to(dev)
+        rec = uteg.recommend(graph, seeds, torch.ones(seeds.shape, device=dev), max_results=400)
+        rel = graphjet.related_tweets(graph, right, torch.from_numpy(world.utg_sources).to(dev), max_results=200)
+        out[dev.type] = [[t.cpu() for t in r] for r in ((ids, scores), rec, rel)] + [[t.cpu() for t in graph + right]]
+    (ids, scores), (want_ids, want_scores) = out["cuda"][0], out["cpu"][0]
+    assert_same_topk(ids.numpy(), scores.numpy(), want_ids.numpy(), want_scores.numpy(), rtol=1e-5, atol=1e-5)
+    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+        for g, w in zip(got[2:], want[2:]):
+            assert torch.equal(g, w)

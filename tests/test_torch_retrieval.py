@@ -1,10 +1,11 @@
 """Port retrieval (the_algorithm_tpu_torch/ops/retrieval.py) against the JAX
 package's batched scan and the numpy hashmap oracle.
 
-Ids are compared as score-aligned sets (``torch.topk`` does not keep
-``lax.top_k``'s order among ties) and scores at rtol 1e-5: both scans sum a
-tweet's contributions in f32 but in different orders (the dedup sorts are
-not equally stable).
+Ids are compared as score-aligned sets and scores at rtol 1e-5: both scans
+sum a tweet's contributions in f32 but in different orders (the dedup sorts
+are not equally stable), so scores a few ulps apart may swap. Exactly equal
+scores rank in ``lax.top_k``'s order on both sides, and a test with
+dyadic scores holds the ids equal.
 """
 
 import functools
@@ -216,3 +217,62 @@ def test_exact_scan_matches_jax(max_results):
     want_rows = np.where(np.asarray(want_rows) < 0, PAD_ID, np.asarray(want_rows))
     got_rows = np.where(got_rows.numpy() < 0, PAD_ID, got_rows.numpy())
     assert_same_topk(got_rows, got_scores.numpy(), want_rows, np.asarray(want_scores))
+
+
+def test_top_k_keeps_lax_top_k_order():
+    rng = np.random.default_rng(6)
+    floats = rng.integers(-3, 4, (5, 40)).astype(np.float32) * 0.5
+    floats[0, ::3] = -np.inf
+    floats[1] = rng.normal(size=40).astype(np.float32)  # negatives of every size
+    ints = rng.integers(-2, 3, (4, 33)).astype(np.int32)
+    ints[0, :5] = np.iinfo(np.int32).min  # the recency scan's sentinel
+    ints[1, :5] = np.iinfo(np.int32).max
+    for x in (floats, ints):
+        for k in (1, 7, x.shape[1]):
+            values, idx = retrieval.top_k(torch.from_numpy(x), k)
+            want_values, want_idx = jax.lax.top_k(jnp.asarray(x), k)
+            np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+            np.testing.assert_array_equal(values.numpy(), np.asarray(want_values))
+
+
+def test_equal_scores_rank_as_jax_ranks_them():
+    """Each tweet sits in one cluster row and every score is 0.5: all of a
+    query's candidates tie, and X cuts inside the tie. The port keeps
+    lax.top_k's order (lower dedup slot, i.e. lower tweet id, first)."""
+    rng = np.random.default_rng(8)
+    ids = rng.permutation(C * M).reshape(C, M).astype(np.int32)
+    index_np = (ids, np.full((C, M), 0.5, np.float32), np.zeros((C, M), np.int32))
+    src_ids, _ = make_sources()
+    src_np = (src_ids, np.where(src_ids != PAD_ID, 0.5, 0.0).astype(np.float32))
+    got = _port(index_np, src_np, max_results=X)
+    want = _jax(index_np, src_np, max_results=X)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    # the exact scan's running merge keeps the same order: identical corpus rows
+    corpus_ids = np.tile(np.arange(6, dtype=np.int32), (128, 1))
+    corpus_scores = np.full((128, 6), 0.5, np.float32)
+    src = SparseEmbedding(*(torch.from_numpy(a) for a in src_np))
+    got = retrieval.exact_cosine_scan(torch.from_numpy(corpus_ids), torch.from_numpy(corpus_scores), src,
+                                      num_clusters=C, max_results=X, block=32)
+    want = jr.exact_cosine_scan(jnp.asarray(corpus_ids), jnp.asarray(corpus_scores),
+                                js.SparseEmbedding(*(jnp.asarray(a) for a in src_np)), num_clusters=C,
+                                max_results=X, block=32)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("wide", [False, True], ids=["sorted rows", "top-k and tie repair"])
+def test_top_k_on_tie_heavy_rows_keeps_lax_top_k_order(seed, wide):
+    """Few distinct values: the k-th value is tied far beyond the cut, on
+    1-D and batched rows, float and int, on both sides of SMALL_SORT."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 300)) + (retrieval.SMALL_SORT if wide else 0)
+    x = rng.integers(-2, 3, (3, n)).astype(np.float32)
+    x[rng.random((3, n)) < 0.2] = -np.inf
+    ints = np.where(np.isinf(x), np.iinfo(np.int32).min, x).astype(np.int32)  # the recency sentinel
+    for a in (x, x[0], ints):
+        for k in sorted({1, max(1, n // 3), n}):
+            values, idx = retrieval.top_k(torch.from_numpy(np.ascontiguousarray(a)), k)
+            want_values, want_idx = jax.lax.top_k(jnp.asarray(a), k)
+            np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+            np.testing.assert_array_equal(values.numpy(), np.asarray(want_values))

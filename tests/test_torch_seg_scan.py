@@ -144,3 +144,12 @@ def test_plan_refuses_what_the_kernel_does_not_take(args):
         seg_scan._plan(*args, 132)
     with pytest.raises(ValueError):
         seg_scan._plan(5, 5, 2, 132, seg_scan.TileShape(4090, 2, 1))  # not a multiple of 4
+
+
+def test_plan_at_the_candidate_sources_shapes():
+    """UTEG's [32, 256] rows (R=32 users × 8 seeds × 32 slots) get clusters
+    of 5 CTAs of one warp; UTG's [256, 4,096] rows one CTA each, two passes."""
+    assert seg_scan._plan(32, 256, 2, 132)[:5] == (5, 52, 1, 2, 32)
+    for k in (1, 2):
+        cluster, tile, passes, _, threads, _ = seg_scan._plan(256, 4096, k, 132)
+        assert (cluster, tile, passes, threads) == (1, 2048, 2, 288)

@@ -139,6 +139,9 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 20, names\n"
+        "new = {'core.device', 'core.hashing', 'search.analyzer', 'search.earlybird', 'search.root',\n"
+        "       'graph.uteg', 'graph.graphjet', 'data.foryou_world'}\n"
+        "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'the_algorithm_tpu.')))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"

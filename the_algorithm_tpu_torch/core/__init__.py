@@ -1,1 +1,1 @@
-"""Core runtime: host-side metrics (the StatsReceiver analog)."""
+"""Core runtime: host-side metrics (the StatsReceiver analog) and feature hashing."""

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from the_algorithm_tpu_torch.core.device import resolve
+
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
 
 
@@ -45,12 +47,8 @@ class MaskNetConfig:
 
 
 def _device(device) -> torch.device:
-    """The device to build on: the card unless the caller names another.
-    There is no fallback to the CPU: with no card, asking for it raises."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("MaskNet builds on the GPU by default and none is available: pass device='cpu'")
-    return device
+    """The device to build on: the card unless the caller names another."""
+    return resolve(device, "MaskNet")
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:

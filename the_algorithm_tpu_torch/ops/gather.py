@@ -79,6 +79,14 @@ def _plan(row_bytes: Sequence[int], ptrs: Sequence[int], B: int, num_sms: int) -
     raise ValueError(f"row_gather needs rows and bases 4-byte aligned, got rows of {list(row_bytes)} B")
 
 
+def jax_rows(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The row a JAX gather reads for each id of an axis of ``n`` rows: a
+    negative id counts from the end (+n), and the result is clamped to
+    [0, n-1]. Callers map ids through this before :func:`row_gather` or an
+    indexing, so that no out-of-range request traps the card."""
+    return torch.where(ids < 0, ids + n, ids).clamp_(0, n - 1)
+
+
 def _check(ids: torch.Tensor, tables: Tuple[torch.Tensor, ...]) -> None:
     if ids.dtype != torch.int32:
         raise ValueError(f"ids must be int32, got {ids.dtype}")

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from the_algorithm_tpu_torch.ops import sparse
-from the_algorithm_tpu_torch.ops.gather import row_gather
+from the_algorithm_tpu_torch.ops.gather import jax_rows, row_gather
 from the_algorithm_tpu_torch.ops.seg_scan import run_collapse_sorted
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 
@@ -56,6 +56,61 @@ def sort_by_id(ids: torch.Tensor, *values: torch.Tensor) -> Tuple[torch.Tensor, 
     """Stable sort of each [Q, W] row by id, carrying the value arrays along."""
     ids, order = torch.sort(ids, dim=-1, stable=True)
     return (ids,) + tuple(torch.take_along_dim(v, order, dim=-1) for v in values)
+
+
+# rows up to this wide sort in one in-place pass each on the card, which beats
+# torch.topk there; wider rows are segment-sorted, several times slower than
+# the top-K below (chip_smoke.py times both sides at each path's shape)
+SMALL_SORT = 4096
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries along the last dim, descending, equal values
+    lower index first: the order of ``lax.top_k``, which ``torch.topk`` does
+    not promise. ``x`` is float32 without NaN, or int32. Returns (values,
+    int64 indices).
+
+    Rows up to :data:`SMALL_SORT` wide: a stable descending sort, cut at k.
+    Wider rows: ``torch.topk`` picks the k largest, and every entry above
+    the k-th value is among them, so only the entries equal to it may be the
+    wrong ones; the pick is put in order (value, then index) and its entries
+    equal to the k-th value are replaced by the lowest-index entries of
+    ``x`` with that value.
+    """
+    if x.dtype not in (torch.float32, torch.int32):
+        raise ValueError(f"top_k ranks float32 or int32, got {x.dtype}")
+    if x.shape[-1] <= SMALL_SORT:
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k]
+    vals, idx = torch.topk(x, k, dim=-1)
+    kth = vals[..., -1:]
+    above = (vals > kth).sum(-1, keepdim=True)  # every entry of x above the k-th value is picked
+    # the pick in order: one small sort of distinct keys
+    order = torch.sort(_order_key(vals, idx, x.shape[-1]), dim=-1, descending=True).indices
+    vals, idx = torch.gather(vals, -1, order), torch.gather(idx, -1, order)
+    # slot s >= above holds the (s - above + 1)-th entry of x equal to the k-th
+    # value; the running count of those entries along each row comes from one
+    # scan of the flattened rows (a row-wise cumsum is several times slower
+    # on the card) less the count before the row
+    eq = x == kth
+    flat = torch.cumsum(eq.reshape(-1), dim=0, dtype=torch.int32).view(eq.shape)
+    seen = flat - (flat[..., :1] - eq[..., :1].to(torch.int32))
+    slot = torch.arange(k, device=x.device, dtype=torch.int32)
+    want = torch.clamp(slot - above.to(torch.int32) + 1, min=1)
+    ties = torch.searchsorted(seen, want)
+    return vals, torch.where(slot >= above, ties, idx)
+
+
+def _order_key(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """A distinct int64 key per (value, index) that sorts as ``lax.top_k``
+    ranks: the value's order-preserving 32-bit image above the reversed
+    index."""
+    if vals.dtype == torch.float32:
+        bits = vals.view(torch.int32)
+        image = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # negative floats count down
+    else:
+        image = vals
+    return image.to(torch.int64) * (1 << 32) + (n - 1 - idx)
 
 
 def _dedup_sum(ids: torch.Tensor, *values: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -130,9 +185,7 @@ def fetch_rows(
     JAX package's gather reads: a negative id counts from the end (+C), and
     the result is clamped to [0, C-1]; such a slot keeps its score.
     """
-    C = index.num_clusters
-    safe_cluster = torch.where(source.valid_mask(), source.ids, 0)
-    safe_cluster = torch.where(safe_cluster < 0, safe_cluster + C, safe_cluster).clamp_(0, C - 1)
+    safe_cluster = jax_rows(torch.where(source.valid_mask(), source.ids, 0), index.num_clusters)
     rows = row_gather(safe_cluster, index.tweet_ids, index.scores, index.timestamps)
     M = index.tweets_per_cluster
     if max_top_tweets_per_cluster is not None and max_top_tweets_per_cluster < M:
@@ -208,7 +261,7 @@ def approximate_cosine_similarity(
     )
     score = torch.where((uniq_ids != PAD_ID) & (score >= min_score), score, -torch.inf)
     k = min(max_results, score.shape[-1])
-    top_scores, top_idx = torch.topk(score, k, dim=-1)
+    top_scores, top_idx = top_k(score, k)
     top_ids = torch.where(
         torch.isfinite(top_scores), torch.take_along_dim(uniq_ids, top_idx, dim=-1), PAD_ID
     )
@@ -320,9 +373,9 @@ def exact_cosine_scan(
         s = torch.bmm(t_scores[sl].unsqueeze(1), qw).squeeze(1).T  # [Q, block]
         s = s * inv_norm[sl][None, :]
         s = torch.where(live_row[sl][None, :], s, -torch.inf)
-        bs, bi = torch.topk(s, X, dim=1)
+        bs, bi = top_k(s, X)
         br = (bi + start).to(torch.int32)
-        ks, ki = torch.topk(torch.cat([top_scores, bs], dim=1), X, dim=1)
+        ks, ki = top_k(torch.cat([top_scores, bs], dim=1), X)
         top_rows = torch.take_along_dim(torch.cat([top_rows, br], dim=1), ki, dim=1)
         top_scores = ks
     if X < max_results:
