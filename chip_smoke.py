@@ -29,7 +29,20 @@ Phases, each printing its result on its own line:
    oracles; batches/s on the host clock, then a profile of each batch; the
    kernels against their plain versions at these paths' shapes (their
    sorted entries and their row fetches) and on seeded rows of those shapes;
-5. kernels: each hand-written kernel against its plain PyTorch version on
+5. foryou: bench.py's For You request end to end at its sizes (a 16,384-user
+   hydration world, 1,536 candidate slots, the 6,823-column schema, MaskNet
+   in bf16, top-50): the SANN rows of step 3 and the sources of step 4
+   merged by ``BatchedForYouEngine``, hydrated through the row-gather
+   multiget and scored on the card; the launches of one counted R=32 batch;
+   requests/s at each batch size, R=1 latency and a 2-worker
+   ``RequestBatcher`` on the host clock; the card against the port on the
+   CPU (features per schema column, scores), the scores again on the same
+   requests with small creation times, where they spread (card against
+   CPU, bf16 against f32), device selection against the host rescore, bf16
+   against f32; each step's device time, each multiget launch against
+   ``index_select``, and a profile of the batch. The
+   candidate paths' kernel timings of step 4 run after this phase;
+6. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the SANN batch gives it, with both times (CUDA
    events around the call, and device time alone from ``torch.profiler``)
    and the share of each kernel's bytes bound; run_collapse's device time
@@ -42,14 +55,15 @@ Phases, each printing its result on its own line:
    over Q, W and k on seeded sorted rows, against its plain version, with
    both times, TB/s, the share of its bound, and the device time of
    ``copy_`` moving the same bytes;
-6. ranking: a MaskNet at the flagship width (F=6000, 15 heads, G=4, D=512,
+7. ranking: a MaskNet at the flagship width (F=6000, 15 heads, G=4, D=512,
    A=128, trunk (256, 128)) from a seeded generator, saved as a registry
    version and served over HTTP in bf16; every answer is held against a
    direct f32 forward of the same weights.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
-UTEG, UTG), error and times, and, as the last line, ``{"ok": true, "device": {...}}``. Any failure raises, so the
-script exits non-zero and prints no result; it needs no network.
+UTEG, UTG, For You), error and times, and, as the last line,
+``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
+non-zero and prints no result; it needs no network.
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -70,12 +85,17 @@ from torch.autograd import DeviceType
 from the_algorithm_tpu_torch import _build
 from the_algorithm_tpu_torch.data import foryou_world, sann_world
 from the_algorithm_tpu_torch.graph import graphjet, uteg
+from the_algorithm_tpu_torch.mixers import batched_foryou as bf
+from the_algorithm_tpu_torch.mixers import device_hydration as dh
+from the_algorithm_tpu_torch.mixers import feature_schema as fs
+from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
+from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
 from the_algorithm_tpu_torch.models import masknet
 from the_algorithm_tpu_torch.ops import gather, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 from the_algorithm_tpu_torch.search import earlybird
-from the_algorithm_tpu_torch.serving.batcher import BatcherConfig
+from the_algorithm_tpu_torch.serving.batcher import BatcherConfig, RequestBatcher
 from the_algorithm_tpu_torch.serving.model_registry import ModelRegistry, save_params_npz
 from the_algorithm_tpu_torch.serving.server import InferenceServer
 from the_algorithm_tpu_torch.simclusters import ann
@@ -92,6 +112,12 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 # negative combined sum lands in (0, 1e-6], hence the absolute floor
 SCORE_RTOL, SCORE_ATOL = 2e-2, 1e-8
 LOGIT_ATOL = 5e-2
+PROFILER_ATTEMPTS = 5  # sessions a device time may take (device_ms)
+# device-time sessions opened, those opened again after one that saw too
+# little, the times taken from a session that left out kernel events, and
+# the kernels it left out, by name
+PROFILER = {"sessions": 0, "again": 0, "short": 0, "left_out": Counter()}
+MIN_SEEN = 0.95  # the share of a session's kernel launches the profiler must report
 # H100 SXM device memory rate (NVIDIA's data sheet): a kernel's bytes bound
 HBM_BYTES_PER_S = 3.35e12
 # the candidate sources as bench.py's For You phase runs them (bench.py:497-500)
@@ -129,33 +155,80 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def session_kernels(calls):
+    """The CUDA kernel events (``key_averages``) of one ``torch.profiler``
+    session that makes ``calls`` in order."""
+    PROFILER["sessions"] += 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def per_call_ms(kernels, calls: int):
+    """Device time of one of ``calls`` calls in ms from the kernel events of
+    their profiler session: each kernel's mean time times the launches a
+    call makes (its count over ``calls``, rounded). On the card a session
+    often leaves out a kernel event or two, which a mean passes over. None
+    when the session saw no device time, or fewer than MIN_SEEN of the
+    launches those rounded counts imply."""
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.key, (0, 0.0))
+        by_name[e.key] = (n + e.count, us + e.self_device_time_total)
+    per_call = {k: round(n / calls) for k, (n, _) in by_name.items()}
+    want, seen = calls * sum(per_call.values()), sum(n for n, _ in by_name.values())
+    ms = sum(us / n * per_call[k] for k, (n, us) in by_name.items() if n) / 1000
+    if want == 0 or seen < MIN_SEEN * want or ms <= 0:
+        return None
+    PROFILER["short"] += seen < want
+    PROFILER["left_out"].update({k: calls * per_call[k] - n for k, (n, _) in by_name.items()
+                                 if n < calls * per_call[k]})
+    return ms
+
+
 def device_ms(fn, reps: int) -> float:
-    """Device time of one call of ``fn`` in ms: the self device time of every
-    kernel ``reps`` warm calls launch, from ``torch.profiler``, over ``reps``.
-    Unlike :func:`cuda_ms` it leaves out the host's work between launches."""
+    """Device time of one call of ``fn`` in ms, from ``torch.profiler``'s
+    kernel events of ``reps`` warm calls (:func:`per_call_ms`). Unlike
+    :func:`cuda_ms` it leaves out the host's work between launches."""
     for _ in range(3):
         fn()
-    # a session now and then records no device activity at all, or only part
-    # of it (seen after some dozens of sessions in one process): every call
-    # launches at least one kernel, so a session that saw fewer kernels than
-    # calls is measured again
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        us = sum(e.self_device_time_total for e in kernels)
-        if us > 0 and sum(e.count for e in kernels) >= reps:
-            return us / reps / 1000
-    raise RuntimeError("chip_smoke: torch.profiler saw fewer kernels than calls in three sessions")
+    for attempt in range(PROFILER_ATTEMPTS):  # a session that saw too little is measured again, a second later
+        time.sleep(attempt and 1.0)
+        PROFILER["again"] += attempt > 0
+        ms = per_call_ms(session_kernels([fn] * reps), reps)
+        if ms is not None:
+            return ms
+    raise RuntimeError(f"chip_smoke: torch.profiler saw too few kernels in {PROFILER_ATTEMPTS} sessions")
 
 
 def timed_pair(kernel, plain, reps=50, clock=cuda_ms):
     """Plain, kernel, kernel, plain, so drift on the card splits evenly."""
     p1, k1, k2, p2 = clock(plain, reps), clock(kernel, reps), clock(kernel, reps), clock(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_pair(kernel, plain, name: str, reps: int = 50):
+    """Device times of one call of ``kernel`` and of ``plain`` in ms, as
+    :func:`device_ms` takes them, from ONE profiler session that runs plain,
+    kernel, kernel, plain (``reps`` calls each): the kernels whose name holds
+    ``name`` are the hand kernel's, the rest the plain version's. One
+    session where :func:`timed_pair` would open four."""
+    for fn in (plain, kernel):
+        for _ in range(3):
+            fn()
+    for attempt in range(PROFILER_ATTEMPTS):
+        time.sleep(attempt and 1.0)
+        PROFILER["again"] += attempt > 0
+        kernels = session_kernels([plain] * reps + [kernel] * (2 * reps) + [plain] * reps)
+        mine = per_call_ms([e for e in kernels if name in e.key], 2 * reps)
+        rest = per_call_ms([e for e in kernels if name not in e.key], 2 * reps)
+        if mine is not None and rest is not None:
+            return mine, rest
+    raise RuntimeError(f"chip_smoke: torch.profiler saw too few of {name}'s or the plain version's kernels in "
+                       f"{PROFILER_ATTEMPTS} sessions")
 
 
 def time_gather(ids, tables, label):
@@ -169,12 +242,16 @@ def time_gather(ids, tables, label):
     kernel = lambda: gather.row_gather(ids, *tables)  # noqa: E731
     plain = lambda: gather.row_gather_plain(ids, *tables)  # noqa: E731
     ms, plain_ms = timed_pair(kernel, plain)
-    dev_ms, plain_dev_ms = timed_pair(kernel, plain, clock=device_ms)
-    moved = 2 * ids.numel() * sum(t.shape[1] * t.element_size() for t in tables)  # rows read + written
-    bound = bound_ms(moved)
-    print(f"kernel row_gather: {label}, {moved / 1e6:.1f} MB moved, bit-exact; device "
-          f"{dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s, {100 * bound / dev_ms:.1f}% of its {bound:.4f} ms "
-          f"bound) vs index_select {plain_dev_ms:.4f} ms ({moved / plain_dev_ms / 1e9:.2f} TB/s); events "
+    dev_ms, plain_dev_ms = device_pair(kernel, plain, "row_gather")
+    # the bytes the gather needs from HBM: the ids, each distinct row once (a
+    # row fetched again may come from L2) and every output row written
+    row_bytes = sum(t.shape[1] * t.element_size() for t in tables)
+    distinct = int(torch.unique(ids).numel())
+    needed = ids.numel() * ids.element_size() + (distinct + ids.numel()) * row_bytes
+    bound = bound_ms(needed)
+    print(f"kernel row_gather: {label}, {distinct} distinct rows, {needed / 1e6:.1f} MB needed, bit-exact; device "
+          f"{dev_ms:.4f} ms ({needed / dev_ms / 1e9:.2f} TB/s, {100 * bound / dev_ms:.1f}% of its {bound:.4f} ms "
+          f"bound) vs index_select {plain_dev_ms:.4f} ms ({needed / plain_dev_ms / 1e9:.2f} TB/s); events "
           f"{ms:.4f} ms vs {plain_ms:.4f} ms")
     # the plain version is one index_select per table: the library's own call
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
@@ -231,7 +308,7 @@ def time_collapse(entries, label):
     kernel = lambda: seg_scan.run_collapse_sorted(*entries)  # noqa: E731
     plain = lambda: seg_scan.run_collapse_sorted_plain(*entries)  # noqa: E731
     ms, plain_ms = timed_pair(kernel, plain)
-    dev_ms, plain_dev_ms = timed_pair(kernel, plain, clock=device_ms)
+    dev_ms, plain_dev_ms = device_pair(kernel, plain, "run_collapse")
     # the same bytes through the device's own copy kernel: what the memory
     # system gives this traffic in practice
     copies = [torch.empty_like(t) for t in entries]
@@ -431,7 +508,7 @@ def phase_retrieval(shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, i
         torch.cuda.synchronize()
     print("retrieval profile, one batch (torch.profiler, top 16 by device time):")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=16))
-    return launches
+    return launches, out_ids.cpu().numpy(), out_scores.cpu().numpy()
 
 
 def ring_loop(shape, rows, *values):
@@ -626,7 +703,17 @@ def phase_candidates(dev):
         print(f"candidates: {name} profile, one batch (torch.profiler, top 10 by device time):")
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10))
 
-    # the kernels at the shapes these paths give them, and on seeded rows
+    return {name: launches[name] for name in ("uteg", "utg")}, (world, index, graph, right)
+
+
+def phase_candidate_kernels(dev, cand):
+    """The kernels at the shapes the candidate paths give them, and on
+    seeded rows; then top_k at each path's shape."""
+    world, _, graph, right = cand
+    s = world.shape
+    seeds = torch.from_numpy(world.seeds[np.arange(CAND_R) % s.num_users]).to(dev)
+    weights = torch.ones(seeds.shape, device=dev)
+    sources = torch.from_numpy(world.utg_sources).to(dev)
     entries = retrieval.sort_by_id(*uteg.engagement_entries(graph, seeds, weights))
     time_collapse(entries, "UTEG batch's sorted entries")
     flat, ones, users = graphjet.cooccurrence_entries(graph, right, sources)
@@ -645,7 +732,370 @@ def phase_candidates(dev):
     for Q, N, k, label in TOP_K_SHAPES:
         time_top_k(dev, Q, N, k, label)
     torch.cuda.empty_cache()
-    return {name: launches[name] for name in ("uteg", "utg")}
+
+
+# the For You request as bench.py serves it (bench.py:395-614): its hydration
+# world, candidate slots, ranker and selection, nothing cut
+FY_WORLD = dict(seed=5, num_users=16_384, num_authors=4_096, num_tweets=1 << 17, engagement_width=16,
+                now=foryou_world.NOW)
+FY_PB = 1536
+FY_TOP_K = 50
+FY_MODEL = dict(num_heads=15, mask_blocks=4, block_dim=512, aggregation_dim=128, head_hidden=(256, 128))
+FY_BATCHES = (1, 2, 4, 8, 16, 32)
+FY_R = 32  # the counted serve batch (bench.py's largest)
+FY_CPU_R = 2  # requests held against the port on the CPU
+FY_SERIAL = 32  # R=1 requests for the latency percentiles
+FY_FRONT = 64  # concurrent requests through the 2-worker front
+# kernel launches of one serve batch: the hydration multiget reads the keyed
+# tables in 13 launches of <= 3 same-key tables (16-byte rows on the TMA ring,
+# the two 4-byte tables apart) and the packed aggregate stores in 2; UTEG's
+# seed fetch 1, its dedup 1 run_collapse
+FY_LAUNCHES = {"run_collapse": 1, "row_gather": 16}
+# the card against the CPU: float32 sums of ≤ 16 terms, exp2/log1p/sqrt of
+# them, in another order on each device; the model's scores at the same rtol
+FY_RTOL, FY_ATOL = 1e-5, 1e-6
+# device selection against the host's: the same scores but for the host's
+# float64 diversity factor
+SELECT_RTOL = 1e-6
+# the score checks are repeated on candidates with creation times below
+# SPREAD_TS seconds (ids % SPREAD_TS, as the CPU tests' lift): bench.py's
+# ~1e7-second times dominate the random ranker's input layer norm and squeeze
+# a request's scores within ~1e-4 of each other, where neither a wrong row
+# nor bf16's rounding shows
+SPREAD_TS = 1000
+# bf16 against f32 there: each score's distance from its request's median
+# within this share of the largest distance, and the two orders' rank
+# correlation at least this (a path that scored other rows, or ignored its
+# input, fails both)
+BF16_DEV_SHARE, BF16_RANK_CORR = 0.1, 0.99
+# schema families that are copies, one-hots or counts: equal on both devices
+FY_EXACT = ("eb_", "twhin_", "user_interests_emb", "author_agg_emb", "media_clip", "text_emb", "uss_",
+            "follows_who", "tweepcred", "author_follower", "author_following", "author_account",
+            "author_is_verified", "viewer_follows", "author_follows", "retrieval_score", "social_proof",
+            "author_id", "created_ts", "is_in_network", "topic_relevance", "ctx_", "source_onehot")
+
+
+def schema_columns():
+    """[(name, start, end)] of every schema spec, in column order."""
+    out, col = [], 0
+    for spec in fs.WIDE_SCHEMA:
+        out.append((spec.name, col, col + spec.width))
+        col += spec.width
+    return out
+
+
+def ranked(lists, k):
+    """Served lists of Candidates as [R, k] ids (PAD_ID after the last) and
+    scores (0 after)."""
+    ids, scores = np.full((len(lists), k), PAD_ID, np.int64), np.zeros((len(lists), k))
+    for r, got in enumerate(lists):
+        ids[r, :len(got)], scores[r, :len(got)] = [c.id for c in got], [c.score for c in got]
+    return ids, scores
+
+
+def top_by_score(batch, scored, k):
+    """[R, k] ids and combined scores of each request's k best candidates
+    (stable order), from a columnar batch and its ``score_columnar``."""
+    ids, scores = np.full((len(batch), k), PAD_ID, np.int64), np.zeros((len(batch), k))
+    for r, ((_, cols, _), (_, combined)) in enumerate(zip(batch, scored)):
+        top = np.argsort(-combined, kind="stable")[:k]
+        ids[r, :len(top)], scores[r, :len(top)] = cols["ids"][top], combined[top]
+    return ids, scores
+
+
+def spread_lift(lift):
+    """``lift``, but with creation times below SPREAD_TS seconds."""
+    def attach(c):
+        c.cols.setdefault("created_ts", c.ids % SPREAD_TS)
+        return lift(c)
+    return attach
+
+
+def card_against_cpu(card, cpu, cols):
+    """Every candidate's f32 score from the ``card`` scorer against the
+    ``cpu`` one on columnar requests, and their top-K before the diversity
+    rescore as :func:`check_same_ranking` holds them. Returns the largest
+    relative score error, the ranks holding another id, and the median over
+    requests of the relative gap between neighbouring top-K scores."""
+    got, want = card.score_columnar(cols), cpu.score_columnar(cols)
+    err, gaps = 0.0, []
+    for (gp, gc), (wp, wc) in zip(got, want):
+        np.testing.assert_allclose(gp, wp, rtol=FY_RTOL, atol=FY_ATOL)
+        np.testing.assert_allclose(gc, wc, rtol=FY_RTOL, atol=0)
+        err = max(err, float(np.max(np.abs(gc - wc) / np.abs(wc))))
+        top = np.sort(wc.astype(np.float64))[::-1][:FY_TOP_K]
+        gaps.append(np.median(-np.diff(top)) / top[0])
+    ids, scores = top_by_score(cols, got, FY_TOP_K)
+    want_ids, want_sc = top_by_score(cols, want, FY_TOP_K)
+    moved = check_same_ranking(ids, scores, want_ids, want_sc, FY_RTOL, 0.0, "the f32 top-50 on the card")
+    return err, moved, float(np.median(gaps))
+
+
+def bf16_against_f32(got16, want):
+    """bf16 combined scores against f32 ones, each request's: within
+    SCORE_RTOL / SCORE_ATOL (required). Returns the largest relative error;
+    the largest gap between a bf16 and an f32 score's distance from its
+    request's median, over the largest f32 distance; and the least rank
+    correlation of the two orders."""
+    rel, share, corr = 0.0, 0.0, 1.0
+    for (_, c16), (_, c32) in zip(got16, want):
+        np.testing.assert_allclose(c16, c32, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        rel = max(rel, float(np.max(np.abs(c16 - c32) / np.maximum(np.abs(c32), 1e-30))))
+        d16, d32 = c16 - np.median(c16), c32 - np.median(c32)
+        share = max(share, float(np.max(np.abs(d16 - d32)) / np.max(np.abs(d32))))
+        ranks = [np.argsort(np.argsort(c, kind="stable")) for c in (c16, c32)]
+        corr = min(corr, float(np.corrcoef(*ranks)[0, 1]))
+    return rel, share, corr
+
+
+def phase_foryou(dev, sann, cand):
+    """bench.py's For You request end to end: SANN rows, the earlybird and
+    UTEG sources, the hydration of a 6,823-column row per candidate slot and
+    MaskNet in bf16, the author-diversity top-50 on the card, behind a
+    RequestBatcher. Returns the launches of one counted R=32 batch."""
+    sann_ids, sann_scores = sann
+    fy_world, index, graph, _ = cand
+    t0 = time.perf_counter()
+    world = wh.synthetic_world(**FY_WORLD, device=dev)
+    tables, fns, res = dh.build_from_world(world, world.pop("device_spec"))
+    torch.cuda.synchronize()
+    n_sources = len(fs.candidate_source_names())
+    F = fs.total_width(fs.WIDE_SCHEMA)
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()  # the stores are views into their pack
+                for f in tables for t in (f if isinstance(f, tuple) else (f,))}
+    table_mb = sum(storages.values()) / 1e6
+    print(f"foryou: hydration world (users {FY_WORLD['num_users']}, authors {FY_WORLD['num_authors']}, tweets "
+          f"{FY_WORLD['num_tweets']}, {len(tables.agg_values)} aggregate stores; {table_mb:.0f} MB of tables) built "
+          f"with numpy and on the card in {time.perf_counter() - t0:.1f} s (set-up); schema {F} columns, "
+          f"{n_sources} sources")
+
+    cfg32 = masknet.MaskNetConfig(num_features=F, **FY_MODEL, dtype="float32")
+    ref = masknet.MaskNet(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    m16 = masknet.MaskNet(masknet.MaskNetConfig(num_features=F, **FY_MODEL, dtype="bfloat16"), device=dev)
+    m16.load_state_dict(ref.state_dict())
+    weights = masknet.DEFAULT_HEAD_WEIGHTS
+
+    def scorer(model, dtype, k, t=tables):
+        return dh.DeviceHydrationScorer(t, fns, res, model, weights, pad_b=FY_PB, compute_dtype=dtype, select_top_k=k)
+
+    half = sann_ids.shape[0] // 2
+    s = fy_world.shape
+    sources = [  # bench.py:495-506
+        bf.PrecomputedBatchSource(sann_ids[:half], sann_scores[:half]),
+        bf.EarlybirdBatchSource(index, foryou_world.NOW, max_results=EB_RESULTS),
+        bf.UtegBatchSource(graph, lambda u: fy_world.seeds[u % s.num_users], max_results=UTEG_RESULTS),
+        bf.PrecomputedBatchSource(sann_ids[half:], sann_scores[half:], name="TweetMixer"),
+    ]
+
+    lift = bf.ColumnsLift(FY_WORLD["num_authors"], foryou_world.NOW)
+
+    def engine(sc, lift=lift, max_age_s=48 * 3600):
+        return bf.BatchedForYouEngine(batch_sources=sources, scorer=sc, head_names=masknet.DEFAULT_HEAD_NAMES,
+                                      lift=lift, max_age_s=max_age_s)
+
+    served = engine(scorer(m16, torch.bfloat16, FY_TOP_K))  # the serving engine: bf16, selection on the card
+    f32 = engine(scorer(ref, torch.float32, FY_TOP_K))  # the same in f32
+    host_select = engine(scorer(ref, torch.float32, None))  # f32, the diversity rescore on the host
+    follows = [[int(a) for a in row if a != PAD_ID] for row in fy_world.follows]
+
+    def queries(R, base=0):
+        return [ForYouQuery(user_id=base + u, followed_authors=follows[(base + u) % len(follows)],
+                            max_results=FY_TOP_K, now=foryou_world.NOW) for u in range(R)]
+
+    for R in FY_BATCHES:  # each batch size once, as bench.py warms up
+        require(all(len(o) > 0 for o in served.serve_batch(queries(R))), f"an empty list at R={R}")
+    torch.cuda.synchronize()
+
+    # the main path, counted: one serve batch
+    batch = queries(FY_R)
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    out = served.serve_batch(batch)
+    torch.cuda.synchronize()
+    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    print(f"foryou: launches per R={FY_R} serve batch {launches} (hydration multiget and UTEG)")
+    require(launches == FY_LAUNCHES, f"For You launches {launches}, want {FY_LAUNCHES}")
+    require(len(out) == FY_R and all(0 < len(o) <= FY_TOP_K for o in out), "a list empty or too long")
+    for o in out:
+        sc = np.asarray([c.score for c in o])
+        require(bool(np.isfinite(sc).all()) and bool((sc[:-1] >= sc[1:]).all()), "a list not ranked")
+        require(len({c.id for c in o}) == len(o), "a list repeats an id")
+    merged, _ = served.columns(batch)
+    n_cands = [len(c) for c in merged]
+    print(f"foryou: R={FY_R} -> {sum(len(o) for o in out)} ranked of {sum(n_cands)} candidates "
+          f"({min(n_cands)}-{max(n_cands)} a request, {FY_PB} slots)")
+
+    # host clock, before this phase's profiler sessions
+    rps = {}
+    for R in FY_BATCHES:
+        qs = queries(R, base=200)
+        reps = 3 if R >= 16 else 6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            served.serve_batch(qs)
+        torch.cuda.synchronize()
+        rps[R] = (R * reps / (time.perf_counter() - t0), (time.perf_counter() - t0) / reps)
+    batch_ms = 1e3 * rps[FY_R][1]
+    t0 = time.perf_counter()
+    _, cols32 = served.columns(batch)
+    t1 = time.perf_counter()
+    served.scorer.select_columnar(cols32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lat = []
+    for u in range(FY_SERIAL):
+        t0s = time.perf_counter()
+        served.serve_batch(queries(1, base=100 + u))
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0s))
+    lat = np.sort(lat)
+    sizes = []
+
+    def serve(qs):
+        sizes.append(len(qs))
+        return served.serve_batch(qs)
+
+    front = RequestBatcher(serve, BatcherConfig(max_batch_size=FY_R, max_delay_ms=10.0), n_workers=2)
+    try:
+        with ThreadPoolExecutor(FY_FRONT) as pool:
+            t0f = time.perf_counter()
+            answers = list(pool.map(lambda i: front.serve(queries(1, base=300 + i)[0], timeout=300), range(FY_FRONT)))
+            front_s = time.perf_counter() - t0f
+    finally:
+        front.close()
+    require(len(answers) == FY_FRONT and all(0 < len(a) <= FY_TOP_K for a in answers), "the front left a request empty")
+    print("foryou: requests/s by batch (host clock; not a benchmark): " + ", ".join(
+        f"R={R} {v[0]:.1f} ({1e3 * v[1]:.1f} ms a batch)" for R, v in rps.items()))
+    print(f"foryou: R={FY_R} batch split on the host clock: sources + merge {1e3 * (t1 - t0):.1f} ms, scorer "
+          f"(request build, pack, device pass, fetch) {1e3 * (t2 - t1):.1f} ms")
+    print(f"foryou: serial R=1 latency over {FY_SERIAL} requests: p50 {lat[len(lat) // 2]:.1f} ms, p99 "
+          f"{lat[min(len(lat) - 1, int(np.ceil(0.99 * (len(lat) - 1))))]:.1f} ms")
+    print(f"foryou: 2-worker front (max batch {FY_R}, 10 ms) answered {FY_FRONT} concurrent requests, each a "
+          f"non-empty list, in {front_s:.2f} s ({FY_FRONT / front_s:.1f} requests/s; batches of {sizes})")
+
+    # the card against the port on the CPU, the same requests
+    _, cpu_cols = f32.columns(batch[:FY_CPU_R])
+    sc = f32.scorer
+    req = dh.batch_requests([sc.builder.build_columnar(q, c, n) for q, c, n in cpu_cols])
+    packed = dh.pack_requests(req, compact_rows=sc._compact_rows)
+    cpu_tables = tables.to("cpu")
+    got = {}
+    for where, t in (("card", tables), ("cpu", cpu_tables)):
+        with torch.inference_mode():
+            r = dh.unpack_requests(torch.from_numpy(packed).to(t.doc_table.device), sc.builder.follow_width,
+                                   compact_rows=sc._compact_rows)
+            got[where] = dh.assemble(t, fns, r, n_sources=n_sources, agg_packed=t.agg_packed).cpu()
+    x, want_x = got["card"], got["cpu"]
+    require(x.shape == (FY_CPU_R, FY_PB, F) and bool(torch.isfinite(x).all()), f"features of shape {tuple(x.shape)}")
+    worst = {}
+    for name, a, b in schema_columns():
+        d = (x[..., a:b].double() - want_x[..., a:b].double()).abs()
+        if name.startswith(FY_EXACT):
+            require(torch.equal(x[..., a:b], want_x[..., a:b]), f"{name} differs between the card and the CPU")
+        require(torch.allclose(x[..., a:b], want_x[..., a:b], rtol=FY_RTOL, atol=FY_ATOL),
+                f"{name} beyond rtol {FY_RTOL} / atol {FY_ATOL} of the CPU")
+        fam = name.split("_")[0]
+        if float(d.max()) >= worst.get(fam, (0.0, ""))[0]:
+            worst[fam] = (float(d.max()), name)
+    cpu_scorer = scorer(masknet.MaskNet(cfg32, device="cpu"), torch.float32, None, cpu_tables)
+    cpu_scorer.model.load_state_dict(ref.state_dict())
+    # the f32 engine's ranking before its diversity rescore (which a later
+    # check holds on the card): at bench.py's creation times its combined
+    # scores sit a few float32 ulps apart, where two summation orders may
+    # swap neighbours
+    err, moved, gap = card_against_cpu(host_select.scorer, cpu_scorer, cpu_cols)
+    print(f"foryou: card against CPU, R={FY_CPU_R} x {FY_PB} slots x {F} columns: copies, one-hots and counts "
+          f"equal; worst |diff| by family " + ", ".join(f"{f} {e:.3g} ({n})" for f, (e, n) in worst.items() if e > 0)
+          + f" (rtol {FY_RTOL}, atol {FY_ATOL}); f32 scores of {sum(n for _, _, n in cpu_cols)} candidates within "
+          f"rel {err:.3g}; top-{FY_TOP_K} the CPU's ranking ({moved} ranks hold another id, within near-ties; "
+          f"neighbours {gap:.3g} apart, relative)")
+    del x, want_x, got
+
+    # the same requests with small creation times, where scores spread: the
+    # card against the CPU, then bf16 against f32
+    spread = engine(host_select.scorer, lift=spread_lift(lift), max_age_s=10 ** 9)
+    _, spread_cols = spread.columns(batch)
+    t0 = time.perf_counter()
+    err, moved, gap = card_against_cpu(host_select.scorer, cpu_scorer, spread_cols)
+    print(f"foryou: card against CPU with creation times below {SPREAD_TS} s, R={FY_R}: f32 scores of "
+          f"{sum(n for _, _, n in spread_cols)} candidates within rel {err:.3g} (rtol {FY_RTOL}); top-{FY_TOP_K} "
+          f"the CPU's ranking ({moved} ranks hold another id, within near-ties; neighbours {gap:.3g} apart, "
+          f"relative; {time.perf_counter() - t0:.1f} s with the CPU's pass)")
+    del cpu_tables, cpu_scorer
+    scorer16 = scorer(m16, torch.bfloat16, None)
+    rel, dev_share, corr = bf16_against_f32(scorer16.score_columnar(spread_cols),
+                                            host_select.scorer.score_columnar(spread_cols))
+    require(dev_share <= BF16_DEV_SHARE and corr >= BF16_RANK_CORR,
+            f"bf16 scores off f32's spread: deviation share {dev_share:.3g}, rank correlation {corr:.4f}")
+    print(f"foryou: bf16 against f32 with creation times below {SPREAD_TS} s, R={FY_R}: max rel err {rel:.3g} "
+          f"(rtol {SCORE_RTOL}); each score's distance from its request's median within {dev_share:.3g} of the "
+          f"largest (at most {BF16_DEV_SHARE}); rank correlation at least {corr:.5f} (at least {BF16_RANK_CORR})")
+
+    # device selection against the host's rescore, and bf16 against f32, on the card
+    ids, scores = ranked(f32.serve_batch(batch), FY_TOP_K)
+    want_ids, want_sc = ranked(host_select.serve_batch(batch), FY_TOP_K)
+    moved = check_same_ranking(ids, scores, want_ids, want_sc, SELECT_RTOL, 0.0, "device selection")
+    print(f"foryou: device-selected top-{FY_TOP_K} against the host rescore (R={FY_R}): the same ranking "
+          f"({moved} ranks hold another id, within near-ties; rtol {SELECT_RTOL})")
+    _, cols32 = f32.columns(batch)
+    want = host_select.scorer.score_columnar(cols32)
+    rel, dev_share, corr = bf16_against_f32(scorer16.score_columnar(cols32), want)
+    print(f"foryou: served bf16 scores against the f32 engine over {sum(len(c) for _, c in want)} candidates: "
+          f"max rel err {rel:.3g} (rtol {SCORE_RTOL}, atol {SCORE_ATOL}); at bench.py's creation times the "
+          f"scores spread too little to rank by: distance from the median within {dev_share:.3g} of the largest, "
+          f"rank correlation {corr:.3g} (neither required)")
+
+    # where an R=32 batch's device time goes: each step alone, then the batch profiled
+    free, total = torch.cuda.mem_get_info()
+    print(f"foryou: device memory after the checks: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB, reserved {torch.cuda.memory_reserved() / 2**30:.1f} GiB, free {free / 2**30:.1f} of "
+          f"{total / 2**30:.1f} GiB")
+    sc = served.scorer
+    req = dh.batch_requests([sc.builder.build_columnar(q, c, n) for q, c, n in cols32])
+    with torch.inference_mode():
+        r = dh.unpack_requests(torch.from_numpy(dh.pack_requests(req, compact_rows=sc._compact_rows)).to(dev),
+                               sc.builder.follow_width, compact_rows=sc._compact_rows)
+        x = dh.assemble(tables, fns, r, n_sources=n_sources, agg_packed=tables.agg_packed)
+        xb = x.reshape(-1, F).to(torch.bfloat16)
+        combined = masknet.weighted_model_score(torch.sigmoid(m16(xb)).float(), weights).reshape(FY_R, FY_PB)
+        steps = {
+            "assemble": lambda: sc._assemble(r),
+            "MaskNet bf16": lambda: m16(xb),
+            "select": lambda: dh.diversity_select(combined, r.author_ids, r.cand_ids, FY_TOP_K),
+        }
+        split = {name: device_ms(fn, 5) for name, fn in steps.items()}
+        calls = []
+
+        def recording(group, key):
+            calls.append((group, key))
+            return dh.multiget(group, key)
+
+        dh.gather_rows(tables, r, gather=recording, agg_packed=tables.agg_packed)
+    del x, xb
+    print(f"foryou: device time of the R={FY_R} steps alone: "
+          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split.items()))
+
+    # the multiget's launches at their shapes against index_select
+    for group, key in calls:
+        flat = {n: dh._as_rows(t) for n, t in group.items()}
+        for names in dh.launch_groups(flat):
+            tabs = tuple(flat[n] for n in names)
+            label = (f"hydration {', '.join(names)}: {key.numel()} rows x "
+                     f"{'+'.join(str(t.shape[1] * t.element_size()) for t in tabs)} B")
+            time_gather(key.reshape(-1).contiguous(), tabs, label)
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        served.serve_batch(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1000
+    print(f"foryou: profile of one R={FY_R} serve batch (torch.profiler, top 16 by device time); device "
+          f"{dev_ms:.2f} ms of the {batch_ms:.1f} ms batch on the host clock: busy {100 * dev_ms / batch_ms:.0f}%")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=16))
+    torch.cuda.empty_cache()
+    return launches
 
 
 def time_top_k(dev, Q, N, k, label):
@@ -660,6 +1110,8 @@ def time_top_k(dev, Q, N, k, label):
     _, sort_idx = torch.sort(x, dim=-1, descending=True, stable=True)
     require(torch.equal(values, torch.topk(x, k, dim=-1).values), f"top_k values differ from torch.topk's at {label}")
     require(torch.equal(idx, sort_idx[:, :k]), f"top_k indices differ from a stable sort's at {label}")
+    # four sessions (timed_pair), not device_pair's one: top_k launches
+    # torch.topk's own kernels, so kernel names cannot tell the two apart
     ms, plain_ms = timed_pair(lambda: retrieval.top_k(x, k), lambda: torch.topk(x, k, dim=-1), clock=device_ms)
     sort_ms = device_ms(lambda: torch.sort(x, dim=-1, descending=True, stable=True), 50)
     print(f"top_k: {label} [{Q}, {N}] k={k}: device {ms:.4f} ms in lax.top_k's order vs torch.topk {plain_ms:.4f} ms, "
@@ -727,8 +1179,12 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     world = build_world(dev)
-    by_path = {"sann": phase_retrieval(*world)}
-    by_path.update(phase_candidates(dev))
+    sann_launches, *sann_rows = phase_retrieval(*world)
+    by_path = {"sann": sann_launches}
+    cand_launches, cand_world = phase_candidates(dev)
+    by_path.update(cand_launches)
+    by_path["foryou"] = phase_foryou(dev, sann_rows, cand_world)
+    phase_candidate_kernels(dev, cand_world)
     kernels = phase_kernels(world[0], world[6], world[7])
     phase_gather_sweep(dev)
     phase_collapse_sweep(dev)
@@ -737,6 +1193,9 @@ def main() -> int:
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
     }
+    print(f"profiler: {PROFILER['sessions']} device-time sessions, {PROFILER['again']} of them opened again after "
+          f"one that saw too little; {PROFILER['short']} times taken over kernel events the profiler left out, most "
+          f"often of {PROFILER['left_out'].most_common(3)}")
     # launches: the counted batches of every path together; the times are at the SANN shapes
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -14,6 +14,9 @@ from torch_port_util import assert_same_topk, cuda_device  # noqa: F401
 
 from the_algorithm_tpu_torch.data import foryou_world, sann_world
 from the_algorithm_tpu_torch.graph import graphjet, uteg
+from the_algorithm_tpu_torch.mixers import device_hydration as dh
+from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
+from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
 from the_algorithm_tpu_torch.ops import gather, seg_scan
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
@@ -231,3 +234,79 @@ def test_candidate_sources_on_the_card_match_the_cpu(cuda_device):
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
         for g, w in zip(got[2:], want[2:]):
             assert torch.equal(g, w)
+
+
+def _hydration_batch(dev, R=3, PB=128):
+    """A small hydration world built on the CPU and copied to ``dev``, and R
+    columnar requests of PB slots (PAD slots after the candidates, unknown
+    authors among them)."""
+    world = wh.synthetic_world(seed=3, num_users=40, num_authors=48, num_tweets=4096, engagement_width=8, device="cpu")
+    tables, fns, res = dh.build_from_world(world, world.pop("device_spec"))
+    tables = tables.to(dev)
+    builder = dh.HostRequestBuilder(res, pad_b=PB)
+    rng = np.random.default_rng(5)
+    reqs = []
+    for r in range(R):
+        n = 50 + 30 * r
+        ids = rng.integers(0, 1 << 20, n)
+        authors = np.where(rng.random(n) < 0.1, -1, ids % 48)
+        cols = {"ids": ids, "author_id": authors, "created_ts": 10_000_000 - ids % 86400, "topic_id": ids % 16,
+                "source_idx": rng.integers(-1, 72, n)}
+        reqs.append(builder.build_columnar(ForYouQuery(user_id=7 * r, followed_authors=[1, 5, 9], now=10_000_000),
+                                           cols, n))
+    req = dh.batch_requests(reqs)
+    return tables, fns, dh.DeviceRequests(*(torch.from_numpy(a).to(dev) for a in req)), builder.n_sources
+
+
+def test_hydration_multiget_on_the_card_matches_the_cpu(cuda_device):
+    """gather_rows through the row-gather kernel (packed aggregate stores)
+    against the CPU's index_select: every row bit-exact; the assembled block
+    at rtol 1e-5, atol 1e-6 (float32 sums in another order on each device)."""
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        tables, fns, req, n_sources = _hydration_batch(dev)
+        agg = tables.agg_packed
+        before = gather.row_gather.launches
+        rows = dh.gather_rows(tables, req, agg_packed=agg)
+        launches = gather.row_gather.launches - before
+        x = dh.assemble(tables, fns, req, n_sources=n_sources, agg_packed=agg)
+        out.append((rows, x.cpu(), launches))
+    (want_rows, want_x, _), (rows, x, launches) = out
+    assert launches == 15  # the keyed groups in launches of <= 3 tables, and the packed stores in 2
+
+    def flat(d):
+        for k, v in sorted(d.items()):
+            if isinstance(v, dict):
+                yield from flat(v)
+            elif isinstance(v, tuple):
+                yield from v
+            else:
+                yield v
+
+    for g, w in zip(flat(rows), flat(want_rows)):
+        assert torch.equal(g.cpu(), w)
+    torch.testing.assert_close(x, want_x, rtol=1e-5, atol=1e-6)
+
+
+def test_row_gather_at_the_hydration_groups_matches_index_select(cuda_device):
+    """Each launch the multiget makes on the hydration tables: the 16-byte
+    groups on the TMA ring, the groups holding a 4-byte row on the word
+    kernel, every row bit-exact against index_select."""
+    tables, _, _, _ = _hydration_batch(cuda_device)
+    rng = np.random.default_rng(6)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    agg = tables.agg_packed
+    groups = [g for _, g in sorted(dh.keyed_table_plan(tables).items())] + [{"av": agg.values, "al": agg.last_ts}]
+    paths = []
+    for group in groups:
+        flat = {n: dh._as_rows(t) for n, t in group.items()}
+        for names in dh.launch_groups(flat):
+            tabs = [flat[n] for n in names]
+            ids = torch.from_numpy(rng.integers(0, tabs[0].shape[0], 3 * 128).astype(np.int32)).to(cuda_device)
+            plan = gather._plan([t.shape[1] * t.element_size() for t in tabs], [t.data_ptr() for t in tabs],
+                                ids.numel(), sms)
+            paths.append(plan.path)
+            assert plan.path == ("ring" if all(dh._ring_rows(t) for t in tabs) else "words")
+            for g, w in zip(gather.row_gather(ids, *tabs), gather.row_gather_plain(ids, *tabs)):
+                assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    assert paths.count("words") == 3 and len(paths) == 15

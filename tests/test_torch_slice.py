@@ -140,7 +140,10 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 20, names\n"
         "new = {'core.device', 'core.hashing', 'search.analyzer', 'search.earlybird', 'search.root',\n"
-        "       'graph.uteg', 'graph.graphjet', 'data.foryou_world'}\n"
+        "       'graph.uteg', 'graph.graphjet', 'data.foryou_world', 'features.aggregation',\n"
+        "       'features.graph_features', 'features.user_signals', 'features.representation_scorer',\n"
+        "       'graph.realgraph', 'mixers.feature_schema', 'mixers.wide_hydrators', 'mixers.device_hydration',\n"
+        "       'mixers.home_mixer', 'mixers.batched_foryou', 'pipeline.component'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'the_algorithm_tpu.')))\n"
         "assert not bad, bad\n"
