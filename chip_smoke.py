@@ -58,38 +58,70 @@ Phases, each printing its result on its own line:
 7. ranking: a MaskNet at the flagship width (F=6000, 15 heads, G=4, D=512,
    A=128, trunk (256, 128)) from a seeded generator, saved as a registry
    version and served over HTTP in bf16; every answer is held against a
-   direct f32 forward of the same weights.
+   direct f32 forward of the same weights;
+8. exact_tier: bench.py's exact-tier serving (bench.py:616-694) over the
+   step-3 corpus padded to 2,031,616 rows and the step-5 engine: the f32
+   full-corpus scan against a float64 numpy brute force on 4 queries, the
+   turbo (bf16) scan's recall@100 against the f32 scan on all 256 queries;
+   the tiered SANN leg (turbo scan for a sticky 80% of users, the SANN rows
+   for the rest) warmed at R=64 and every scan Q, the launches of one
+   counted R=64 batch, 256 requests from 128 clients through a 2-worker
+   ``RequestBatcher`` (requests/s on the host clock), routing against the
+   host ``Decider`` and under the ``EXACT_RETRIEVAL_TIER`` param, the
+   ``exact_tier`` column;
+9. live: bench.py's live updates (bench.py:696-798) into the step-5
+   engine's tables: the updater's unthrottled ceiling, 4 R=32 batches served
+   while a feeder applies 256-event batches at 6,000 events/s, the probe's
+   top candidate's score moving in the next request (counted), one seeded
+   batch folded on the card against the CPU; then an updater carrying a
+   [131,072, 400] tweet-embedding state (user interests: the step-3 query
+   embeddings) over the same batches, its refreshed [145,408, 1,600] index
+   holding the target tweet in its clusters' rows and serving a faver's
+   SANN query (counted); ``build_cluster_index`` at T=16,384 against the
+   CPU;
+10. the device time of an f32 and a bf16 scan at Q=64 by op, of a fold
+    and of a refresh, and the kernels at the refreshed-index query's
+    shapes. Steps 8-10 run last: on the card, the profiler sessions that
+    follow their thousands of launches and copies miss many of the copy
+    events a short session makes.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
-UTEG, UTG, For You), error and times, and, as the last line,
+UTEG, UTG, For You, the exact tier, live updates), error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from the_algorithm_tpu_torch import _build
+from the_algorithm_tpu_torch.core.config import Params, param_scope
+from the_algorithm_tpu_torch.core.decider import Decider
 from the_algorithm_tpu_torch.data import foryou_world, sann_world
 from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.mixers import batched_foryou as bf
 from the_algorithm_tpu_torch.mixers import device_hydration as dh
 from the_algorithm_tpu_torch.mixers import feature_schema as fs
+from the_algorithm_tpu_torch.mixers import live_updates as lu
 from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
 from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
+from the_algorithm_tpu_torch.mixers.home_products import EXACT_RETRIEVAL_TIER
 from the_algorithm_tpu_torch.models import masknet
 from the_algorithm_tpu_torch.ops import gather, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
@@ -99,6 +131,7 @@ from the_algorithm_tpu_torch.serving.batcher import BatcherConfig, RequestBatche
 from the_algorithm_tpu_torch.serving.model_registry import ModelRegistry, save_params_npz
 from the_algorithm_tpu_torch.serving.server import InferenceServer
 from the_algorithm_tpu_torch.simclusters import ann
+from the_algorithm_tpu_torch.simclusters import tweet_embeddings as te
 from the_algorithm_tpu_torch.training import metrics
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -189,19 +222,26 @@ def per_call_ms(kernels, calls: int):
     return ms
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, kernels_only: bool = False) -> float:
     """Device time of one call of ``fn`` in ms, from ``torch.profiler``'s
     kernel events of ``reps`` warm calls (:func:`per_call_ms`). Unlike
-    :func:`cuda_ms` it leaves out the host's work between launches."""
+    :func:`cuda_ms` it leaves out the host's work between launches.
+    ``kernels_only`` leaves the copies and fills out too."""
     for _ in range(3):
         fn()
     for attempt in range(PROFILER_ATTEMPTS):  # a session that saw too little is measured again, a second later
         time.sleep(attempt and 1.0)
         PROFILER["again"] += attempt > 0
-        ms = per_call_ms(session_kernels([fn] * reps), reps)
+        kernels = [e for e in session_kernels([fn] * reps)
+                   if not (kernels_only and e.key.startswith(("Memcpy", "Memset")))]
+        ms = per_call_ms(kernels, reps)
         if ms is not None:
             return ms
-    raise RuntimeError(f"chip_smoke: torch.profiler saw too few kernels in {PROFILER_ATTEMPTS} sessions")
+    seen = Counter()
+    for e in kernels:
+        seen[e.key[:60]] += e.count
+    raise RuntimeError(f"chip_smoke: torch.profiler saw too few kernels in {PROFILER_ATTEMPTS} sessions of {reps} "
+                       f"calls (after {PROFILER['sessions']} sessions); the last saw {dict(seen)}")
 
 
 def timed_pair(kernel, plain, reps=50, clock=cuda_ms):
@@ -508,7 +548,7 @@ def phase_retrieval(shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, i
         torch.cuda.synchronize()
     print("retrieval profile, one batch (torch.profiler, top 16 by device time):")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=16))
-    return launches, out_ids.cpu().numpy(), out_scores.cpu().numpy()
+    return launches, out_ids.cpu().numpy(), out_scores.cpu().numpy(), recall
 
 
 def ring_loop(shape, rows, *values):
@@ -852,7 +892,8 @@ def phase_foryou(dev, sann, cand):
     """bench.py's For You request end to end: SANN rows, the earlybird and
     UTEG sources, the hydration of a 6,823-column row per candidate slot and
     MaskNet in bf16, the author-diversity top-50 on the card, behind a
-    RequestBatcher. Returns the launches of one counted R=32 batch."""
+    RequestBatcher. Returns the launches of one counted R=32 batch, and the
+    serving engine's pieces the exact-tier and live-update phases reuse."""
     sann_ids, sann_scores = sann
     fy_world, index, graph, _ = cand
     t0 = time.perf_counter()
@@ -1060,7 +1101,7 @@ def phase_foryou(dev, sann, cand):
         xb = x.reshape(-1, F).to(torch.bfloat16)
         combined = masknet.weighted_model_score(torch.sigmoid(m16(xb)).float(), weights).reshape(FY_R, FY_PB)
         steps = {
-            "assemble": lambda: sc._assemble(r),
+            "assemble": lambda: sc._assemble(r, tables),
             "MaskNet bf16": lambda: m16(xb),
             "select": lambda: dh.diversity_select(combined, r.author_ids, r.cand_ids, FY_TOP_K),
         }
@@ -1095,7 +1136,416 @@ def phase_foryou(dev, sann, cand):
           f"{dev_ms:.2f} ms of the {batch_ms:.1f} ms batch on the host clock: busy {100 * dev_ms / batch_ms:.0f}%")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=16))
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(served=served, sources=sources, lift=lift, queries=queries)
+
+
+# the exact retrieval tier as bench.py serves it (bench.py:616-694): the turbo
+# full-corpus scan for a sticky 80% of users, the SANN rows for the rest
+TIER_AVAILABILITY = 8000  # of 10,000: the decider's dial
+TIER_R = 64  # the tier front's batch (bench.py:647)
+TIER_QS = (64, 32, 16, 8, 4, 2, 1)  # every power-of-two scan shape the front's tier counts give
+TIER_REQUESTS, TIER_CLIENTS = 256, 128
+TIER_RESULTS = 200
+TIER_BASE = 400  # bench.py's make_query(400 + i)
+BRUTE_QUERIES = 4  # queries held against the float64 brute force
+# the f32 scan against the float64 brute force: f32 sums of 32 products of
+# normalized scores, and f32 norms
+EXACT_RTOL, EXACT_ATOL = 1e-5, 1e-6
+TURBO_RECALL = 0.99  # the JAX package's recall_target
+# the live updates as bench.py drives them (bench.py:696-798)
+LIVE_E = 256  # events a batch
+LIVE_EPS = 6000.0  # the feeder's rate: the reference's ingest point
+LIVE_CEILING = 8  # batches of the unthrottled ceiling
+LIVE_R, LIVE_SERVE = 32, 4  # R=32 batches served while the feeder runs
+LIVE_TARGET_FAVS = 8  # events a batch on the probe's top candidate
+FOLD_RTOL = 1e-6  # folded aggregates, card against CPU: exp2 decays and f32 sums in another order
+# the tweet-embedding state the updater folds (simclusters/tweet_embeddings.py prod defaults)
+EMB_T = 1 << 17
+INDEX_T = 16_384  # tweets of the index build held against the CPU
+
+
+class RoutedExact(bf.ExactScanBatchSource):
+    """The tier's exact source, recording the users it scans for."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.users = set()
+
+    def dispatch(self, queries, params):
+        self.users.update(int(q.user_id) for q in queries)
+        return super().dispatch(queries, params)
+
+
+def brute_force_cosine(tweet_ids, tweet_scores, q_ids, q_scores, k):
+    """Exact cosine top-k over the whole corpus in float64 numpy: (rows [k],
+    scores [k]) for one query."""
+    q = np.zeros(int(tweet_ids.max()) + 1)
+    np.add.at(q, q_ids, q_scores.astype(np.float64))
+    q /= max(np.sqrt(np.sum(q * q)), 1e-9)
+    s = tweet_scores.astype(np.float64)
+    score = np.sum(q[tweet_ids] * s, axis=1) / np.maximum(np.sqrt(np.sum(s * s, axis=1)), 1e-9)
+    top = np.argsort(-score, kind="stable")[:k]
+    return top, score[top]
+
+
+def scan_profile(scan, label):
+    """A scan's device time (device_ms) and its top ops by device time."""
+    ms = device_ms(scan, 3)
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        scan()
+        torch.cuda.synchronize()
+    print(f"exact_tier: {label}: device {ms:.2f} ms a scan; by op (torch.profiler, top 8 by device time):")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
+    return ms
+
+
+def phase_exact_tier(world, sann, sann_recall, fy):
+    """bench.py's exact-tier For You serving: the tiered SANN leg (the turbo
+    full-corpus scan for the decider's users, the precomputed SANN rows for
+    the rest) with the earlybird and UTEG legs, MaskNet bf16 and top-50,
+    behind a 2-worker RequestBatcher. Returns the launches of one counted
+    R=64 batch, and the Q=64 scans whose device time phase_new_path_times
+    takes."""
+    shape, tweet_ids, tweet_scores, _, q_ids, q_scores, index, _ = world
+    dev = index.scores.device
+    sann_ids, sann_scores = sann
+    t0 = time.perf_counter()
+    ti, tsc = (torch.from_numpy(a).to(dev) for a in sann_world.padded_corpus(tweet_ids, tweet_scores, EXACT_BLOCK))
+    queries = SparseEmbedding(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_scores).to(dev))
+    torch.cuda.synchronize()
+    print(f"exact_tier: corpus [{ti.shape[0]}, {ti.shape[1]}] on the card in {time.perf_counter() - t0:.1f} s "
+          f"(set-up); {shape.Q} query embeddings")
+
+    def scan(q, k, turbo, n=shape.Q):
+        src = SparseEmbedding(q.ids[:n], q.scores[:n])
+        return retrieval.exact_cosine_scan(
+            ti, tsc, src, num_clusters=shape.C, max_results=k, block=EXACT_BLOCK,
+            compute_dtype=torch.bfloat16 if turbo else torch.float32, approx_block_topk=turbo)
+
+    # the f32 scan against a float64 brute force over the whole corpus
+    rows, scores = (t.cpu().numpy() for t in scan(queries, TIER_RESULTS, False, BRUTE_QUERIES))
+    t0 = time.perf_counter()
+    want = [brute_force_cosine(tweet_ids, tweet_scores, q_ids[q], q_scores[q], TIER_RESULTS)
+            for q in range(BRUTE_QUERIES)]
+    moved = check_same_ranking(rows, scores, np.stack([w[0] for w in want]), np.stack([w[1] for w in want]),
+                               EXACT_RTOL, EXACT_ATOL, "the f32 exact scan against the float64 brute force")
+    print(f"exact_tier: f32 scan top-{TIER_RESULTS} of {BRUTE_QUERIES} queries equals a float64 numpy brute-force "
+          f"cosine over all {tweet_ids.shape[0]} tweets ({moved} ranks hold another id, within near-ties; rtol "
+          f"{EXACT_RTOL}, atol {EXACT_ATOL}; {time.perf_counter() - t0:.1f} s of numpy)")
+    # the turbo scan's recall@100 against the f32 scan on every query
+    truth = scan(queries, K_RECALL, False)[0].cpu().numpy()
+    fast = scan(queries, K_RECALL, True)[0].cpu().numpy()
+    tier_recall = sum(len(set(fast[q].tolist()) & set(truth[q].tolist())) for q in range(shape.Q)) / truth.size
+    require(tier_recall >= TURBO_RECALL, f"turbo scan recall@{K_RECALL} {tier_recall} < {TURBO_RECALL}")
+
+    served, lift, make = fy["served"], fy["lift"], fy["queries"]
+    half = sann_ids.shape[0] // 2
+    q_np = (q_ids.astype(np.int32), q_scores)
+
+    def emb_fn(uid):
+        r = uid % q_np[0].shape[0]
+        return q_np[0][r], q_np[1][r]
+
+    exact = RoutedExact(ti, tsc, emb_fn, num_clusters=shape.C, max_results=TIER_RESULTS, block=EXACT_BLOCK,
+                        turbo=True)
+    decider = Decider({bf.TieredSannBatchSource.FEATURE: TIER_AVAILABILITY})
+    tiered = bf.TieredSannBatchSource(bf.PrecomputedBatchSource(sann_ids[:half], sann_scores[:half]), exact, decider)
+    engine = bf.BatchedForYouEngine(batch_sources=[tiered] + fy["sources"][1:], scorer=served.scorer,
+                                    head_names=masknet.DEFAULT_HEAD_NAMES, lift=lift)
+    batch = make(TIER_R, base=TIER_BASE)
+    require(all(len(o) > 0 for o in engine.serve_batch(batch)), f"an empty list at R={TIER_R}")
+    for qn in TIER_QS:  # warm every scan shape
+        exact.collect(exact.dispatch(batch[:qn], None))
+    torch.cuda.synchronize()
+
+    # the main path, counted: one R=64 batch
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    out = engine.serve_batch(batch)
+    torch.cuda.synchronize()
+    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    print(f"exact_tier: launches per R={TIER_R} serve batch {launches} (hydration multiget and UTEG; the scan's "
+          "gather is index_select)")
+    require(launches == FY_LAUNCHES, f"exact-tier launches {launches}, want {FY_LAUNCHES}")
+    require(len(out) == TIER_R and all(0 < len(o) <= FY_TOP_K for o in out), "a tier list empty or too long")
+    in_tier = [decider.is_available_for_id(tiered.FEATURE, q.user_id) for q in batch]
+    merged, _ = engine.columns(batch)
+    sann_slot = engine.source_index[tiered.name]
+    for c, t in zip(merged, in_tier):
+        flag = np.asarray(c.cols.get("exact_tier", np.zeros(len(c))))
+        from_sann = c.cols["source_idx"] == sann_slot
+        require(bool((flag[from_sann] == (1.0 if t else 0.0)).all()) and not flag[~from_sann].any(),
+                "an exact_tier column off its tier")
+    print(f"exact_tier: R={TIER_R}: {sum(in_tier)} requests in the tier; every tier candidate carries exact_tier 1, "
+          "no other candidate does")
+
+    # host clock, before this phase's profiler sessions: the 2-worker front
+    exact.users.clear()
+    front = RequestBatcher(engine.serve_batch, BatcherConfig(max_batch_size=TIER_R, max_delay_ms=10.0), n_workers=2)
+    users = [TIER_BASE + i for i in range(TIER_REQUESTS)]
+    try:
+        with ThreadPoolExecutor(TIER_CLIENTS) as pool:
+            t0 = time.perf_counter()
+            answers = list(pool.map(lambda u: front.serve(make(1, base=u)[0], timeout=300), users))
+            front_s = time.perf_counter() - t0
+    finally:
+        front.close()
+    require(len(answers) == TIER_REQUESTS and all(0 < len(a) <= FY_TOP_K for a in answers),
+            "the tier front left a request empty")
+    want_tier = {u for u in users if decider.is_available_for_id(tiered.FEATURE, u)}
+    require(exact.users == want_tier, f"{len(exact.users)} users routed to the tier, the decider's {len(want_tier)}")
+    p = TIER_AVAILABILITY / 10000
+    print(f"exact_tier: 2-worker front (max batch {TIER_R}, 10 ms) answered {TIER_REQUESTS} requests from "
+          f"{TIER_CLIENTS} clients, each a non-empty list, in {front_s:.2f} s ({TIER_REQUESTS / front_s:.1f} "
+          f"requests/s; host clock, not a benchmark); {len(want_tier)} routed to the tier, as the host Decider "
+          f"routes them (availability {p})")
+    print(f"exact_tier: tier scan recall@{K_RECALL} {tier_recall:.4f} against the f32 scan over {shape.Q} queries "
+          f"(at least {TURBO_RECALL}); blended retrieval recall {p * tier_recall + (1 - p) * sann_recall:.4f} "
+          f"({p} x tier + {1 - p:.1f} x the SANN recall@{K_RECALL} {sann_recall:.4f})")
+
+    # the per-request override
+    outside = next(u for u in range(5000, 6000) if not decider.is_available_for_id(tiered.FEATURE, u))
+    inside = next(u for u in range(5000, 6000) if decider.is_available_for_id(tiered.FEATURE, u))
+    for u, forced in ((outside, True), (inside, False)):
+        exact.users.clear()
+        with param_scope({EXACT_RETRIEVAL_TIER: forced}):
+            got = engine.serve_batch(make(1, base=u), Params())
+        require(len(got[0]) > 0 and (u in exact.users) == forced,
+                f"EXACT_RETRIEVAL_TIER={forced} did not route user {u}")
+    print(f"exact_tier: EXACT_RETRIEVAL_TIER under param_scope routes user {outside} (out of the decider's tier) "
+          f"into the tier, and user {inside} (in it) out")
+
+    del exact, tiered, engine
+    torch.cuda.empty_cache()
+    # device times come last (phase_new_path_times): the scans at Q=64
+    label = f"Q={TIER_R}, top-{TIER_RESULTS}, {ti.shape[0] // EXACT_BLOCK} blocks of {EXACT_BLOCK}"
+    return launches, {f"f32 scan, {label}": lambda: scan(queries, TIER_RESULTS, False, TIER_R),
+                      f"turbo (bf16) scan, {label}": lambda: scan(queries, TIER_RESULTS, True, TIER_R)}
+
+
+def bench_events(rng, clock, target, target_author, num_users, num_authors):
+    """bench.py's event batch (bench.py:716-732): users, tweets below 2¹⁵ and
+    kinds drawn as there, the first LIVE_TARGET_FAVS on the target tweet."""
+    users = rng.integers(0, num_users, LIVE_E)
+    tweets = rng.integers(0, 1 << 15, LIVE_E).astype(np.int64)
+    tweets[:LIVE_TARGET_FAVS] = target
+    kinds = rng.choice(np.asarray(["fav", "retweet", "reply", "click"]), LIVE_E, p=[0.7, 0.1, 0.1, 0.1])
+    return lu.batch_from_actions([
+        (int(users[i]), int(tweets[i]), int(tweets[i] % num_authors) if tweets[i] != target else target_author,
+         str(kinds[i]), clock) for i in range(LIVE_E)])
+
+
+def stub_scorer(tables, resolvers):
+    """What LiveUpdater needs of a scorer: its tables and the resolvers."""
+    return SimpleNamespace(tables=tables, builder=SimpleNamespace(resolvers=resolvers))
+
+
+def fold_card_against_cpu(tables, resolvers, batch):
+    """One event batch folded into the card's tables and into a CPU copy:
+    aggregates within FOLD_RTOL, timestamps, rings and history exact."""
+    card = lu.LiveUpdater(stub_scorer(tables, copy.deepcopy(resolvers)))
+    cpu = lu.LiveUpdater(stub_scorer(tables.to("cpu"), copy.deepcopy(resolvers)))
+    require(card.apply(batch) == cpu.apply(batch), "the card and the CPU applied different counts")
+    got, want = card.scorer.tables, cpu.scorer.tables
+    require(torch.allclose(got.agg_packed.values.cpu(), want.agg_packed.values, rtol=FOLD_RTOL, atol=0),
+            f"folded aggregates beyond rtol {FOLD_RTOL} of the CPU's")
+    for name in ("uss_ids", "uss_ts", "eng_ids", "eng_type", "eng_ts", "eng_valid"):
+        require(torch.equal(getattr(got, name).cpu(), getattr(want, name)), f"{name} differs from the CPU's")
+    require(torch.equal(got.agg_packed.last_ts.cpu(), want.agg_packed.last_ts), "agg last_ts differs from the CPU's")
+    return float((got.agg_packed.values.cpu() - want.agg_packed.values).abs().max())
+
+
+def seeded_embedding_state(dev, C):
+    """A [INDEX_T, 400] tweet table of dyadic scores over 2,048 of the C
+    clusters, four decay times and fav counts around the minimum: exact
+    (cluster, score) ties, cut at M inside them."""
+    rng = np.random.default_rng(31)
+    cfg = te.TweetEmbeddingConfig()
+    ids = rng.integers(0, min(C, 2048), (INDEX_T, cfg.clusters_per_tweet)).astype(np.int32)
+    scores = (rng.integers(1, 8, ids.shape) * 0.125).astype(np.float32)
+    ids[:, 300:], scores[:, 300:] = PAD_ID, 0
+    last = (foryou_world.NOW - 3600 * rng.integers(0, 4, INDEX_T)).astype(np.int32)
+    favs = rng.integers(0, 2 * cfg.min_favorite_count, INDEX_T).astype(np.int32)
+    created = np.full(INDEX_T, foryou_world.NOW - 7200, np.int32)
+    author = rng.integers(0, 4096, INDEX_T).astype(np.int32)
+    arrays = (ids, scores, last, favs, created, author)
+    return te.TweetEmbeddingState(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def phase_live_updates(dev, world, fy):
+    """bench.py's live updates: event batches folded into the serving
+    engine's tables while it serves; freshness in the next request; the card
+    against the CPU; then an updater carrying a tweet-embedding state whose
+    refreshed cluster index serves a SANN query. Returns the launches of
+    the freshness request and that query, and the work whose device time
+    phase_new_path_times takes."""
+    shape, _, _, _, q_ids, q_scores, _, _ = world
+    served, make = fy["served"], fy["queries"]
+    scorer = served.scorer
+    num_users, num_authors = FY_WORLD["num_users"], FY_WORLD["num_authors"]
+    now = foryou_world.NOW
+    updater = lu.LiveUpdater(scorer)
+    rng = np.random.default_rng(23)
+    probe = make(1, base=900)[0]
+    target = served.serve_batch([probe])[0][0]  # the probe's top candidate
+    target_author = int(target.features.get("author_id", 0) or 0)
+    clock = [now]
+
+    def next_batch():
+        clock[0] += 1
+        return bench_events(rng, clock[0], int(target.id), target_author, num_users, num_authors)
+
+    batches = [next_batch() for _ in range(1 + LIVE_CEILING)]
+    updater.apply(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        updater.apply(b)
+    torch.cuda.synchronize()
+    ceiling = LIVE_CEILING * LIVE_E / (time.perf_counter() - t0)
+
+    stop, applied = threading.Event(), [0]
+
+    def feeder():
+        while not stop.is_set():
+            t_b = time.perf_counter()
+            updater.apply(next_batch())
+            applied[0] += LIVE_E
+            time.sleep(max(0.0, LIVE_E / LIVE_EPS - (time.perf_counter() - t_b)))
+
+    qs = make(LIVE_R, base=700)
+    served.serve_batch(qs)
+    torch.cuda.synchronize()
+    th = threading.Thread(target=feeder, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(LIVE_SERVE):
+            served.serve_batch(qs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    require(not th.is_alive(), "the feeder thread did not stop")
+    window = time.perf_counter() - t0
+    print(f"live: unthrottled updater ceiling {ceiling:.1f} events/s over {LIVE_CEILING} batches of {LIVE_E}; "
+          f"serving {LIVE_SERVE} R={LIVE_R} batches while a feeder applied {applied[0]} events at a target "
+          f"{LIVE_EPS:.0f}/s: {LIVE_SERVE * LIVE_R / serve_s:.1f} requests/s, {applied[0] / window:.1f} events/s "
+          "achieved (host clock, not a benchmark)")
+
+    # freshness: the next request after the fav bursts, counted
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    after = served.serve_batch([probe])[0]
+    torch.cuda.synchronize()
+    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    require(launches == FY_LAUNCHES, f"launches of the request after the updates {launches}, want {FY_LAUNCHES}")
+    after_s = {c.id: c.score for c in after}.get(target.id)
+    require(after_s is None or abs(after_s - target.score) > 1e-9,
+            f"the fav bursts did not move tweet {target.id}'s score ({target.score} -> {after_s})")
+    print(f"live: freshness: tweet {target.id}, the probe's top candidate, scored {target.score:.6g} before the "
+          f"updates and {'%.6g' % after_s if after_s is not None else 'out of the top-50'} in the next request "
+          f"(launches {launches})")
+
+    # one seeded batch folded on the card and on the CPU
+    t0 = time.perf_counter()
+    err = fold_card_against_cpu(scorer.tables, scorer.builder.resolvers,
+                                bench_events(np.random.default_rng(29), now + 100, int(target.id), target_author,
+                                             num_users, num_authors))
+    print(f"live: one seeded batch of {LIVE_E} events folded on the card equals the port on the CPU: aggregates "
+          f"max |diff| {err:.3g} (rtol {FOLD_RTOL}), timestamps, USS rings and engagement history exact "
+          f"({time.perf_counter() - t0:.1f} s with the CPU's fold)")
+
+    # the tweet-embedding state: the same batches, favers' interests the SANN queries
+    cfg = te.TweetEmbeddingConfig()
+    tweets = np.arange(EMB_T)
+    state = te.init_state(EMB_T, cfg.clusters_per_tweet, now - tweets % (40 * 3600), tweets % num_authors,
+                          device=dev)
+    interests = SparseEmbedding(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_scores).to(dev))
+    emb = lu.LiveUpdater(scorer, emb_state=state, user_interests=interests, emb_config=cfg, num_clusters=shape.C)
+    for b in batches:
+        emb.apply(b)
+    refreshed = clock[0] + 1
+    index = emb.refresh_index(refreshed)
+    row = int(target.id) % EMB_T
+    st = emb.emb_state
+    require(int(st.fav_count[row]) >= cfg.min_favorite_count, f"tweet {target.id} has too few favs to be indexed")
+    clusters = st.cluster_ids[row][st.cluster_ids[row] != PAD_ID].long()
+    require(clusters.numel() > 0 and bool((index.tweet_ids[clusters] == row).any(dim=1).all()),
+            f"the refreshed index leaves tweet {target.id} out of some of its clusters' rows")
+    favers = np.unique(np.concatenate([b.user_ids[b.tweet_ids == target.id] for b in batches]) % q_ids.shape[0])
+    contributed = np.unique(q_ids[favers, :cfg.clusters_per_user_contribution])
+    require(bool(np.isin(clusters.cpu().numpy(), contributed).all()), "the tweet holds clusters no faver gave it")
+    overlap = [np.isin(q_ids[u, :cfg.clusters_per_user_contribution], clusters.cpu().numpy()).sum() for u in favers]
+    faver = int(favers[int(np.argmax(overlap))])
+    print(f"live: refresh_index over [{EMB_T}, {cfg.clusters_per_tweet}] tweets -> [{shape.C}, "
+          f"{cfg.tweets_per_cluster}]: tweet {target.id} ({int(st.fav_count[row])} favs from {len(favers)} favers) in "
+          f"the rows of all {clusters.numel()} of its clusters")
+
+    # a SANN query from one faver's interests over the refreshed index, counted
+    ann_cfg = ann.SimClustersANNConfig(max_scan_clusters=shape.N, max_top_tweets_per_cluster=cfg.tweets_per_cluster,
+                                       max_num_results=shape.X)
+    src = SparseEmbedding(interests.ids[faver:faver + 1], interests.scores[faver:faver + 1])
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    ids, _ = ann.get_tweet_candidates_batch(index, src, ann_cfg)
+    torch.cuda.synchronize()
+    query_launches = {"run_collapse": seg_scan.run_collapse_sorted.launches,
+                      "row_gather": gather.row_gather.launches}
+    require(all(n > 0 for n in query_launches.values()), f"a kernel of the refreshed-index query never launched: "
+            f"{query_launches}")
+    require(row in ids[0].tolist(), f"faver {faver}'s SANN query over the refreshed index misses tweet {target.id}")
+    launches = {k: launches[k] + query_launches[k] for k in launches}
+    print(f"live: faver {faver}'s SANN query (N={shape.N}, M={cfg.tweets_per_cluster}) over the refreshed index "
+          f"retrieves tweet {target.id} (row {row}); launches {query_launches}")
+
+    # the index build on the card against the CPU, exact ties included
+    tied = seeded_embedding_state(dev, shape.C)
+    t0 = time.perf_counter()
+    got = te.build_cluster_index(tied, shape.C, cfg, now)
+    want = te.build_cluster_index(te.TweetEmbeddingState(*(t.cpu() for t in tied)), shape.C, cfg, now)
+    moved = int((got.tweet_ids.cpu() != want.tweet_ids).sum())
+    require(moved == 0 and torch.equal(got.timestamps.cpu(), want.timestamps),
+            f"build_cluster_index on the card places other tweets than the CPU's in {moved} slots")
+    require(torch.allclose(got.scores.cpu(), want.scores, rtol=FOLD_RTOL, atol=0),
+            f"build_cluster_index scores beyond rtol {FOLD_RTOL} of the CPU's")
+    err = float((got.scores.cpu() - want.scores).abs().max())
+    print(f"live: build_cluster_index at T={INDEX_T} (dyadic scores, exact ties cut at M={cfg.tweets_per_cluster}) "
+          f"on the card equals the CPU's: ids and timestamps exact, decayed scores max |diff| {err:.3g} (rtol "
+          f"{FOLD_RTOL}; exp2 on each device) ({time.perf_counter() - t0:.1f} s with the CPU's build)")
+    del got, want, tied
+
+    torch.cuda.empty_cache()
+
+    def kernels():  # the kernels at the refreshed-index query's shapes
+        safe = gather.jax_rows(torch.where(src.valid_mask(), src.ids, 0), shape.C).reshape(-1).contiguous()
+        time_gather(safe, tuple(index), f"refreshed-index row fetch, {safe.numel()} rows x 3 tables [{shape.C}, "
+                    f"{cfg.tweets_per_cluster}]")
+        rows = tuple(r.reshape(1, shape.N, -1) for r in gather.row_gather(safe, *index))
+        time_collapse(retrieval.sort_by_id(*retrieval.scan_entries(*rows, src)),
+                      "refreshed-index query's sorted entries")
+
+    # device times come last (phase_new_path_times): a fold with and without
+    # the embedding state, and a refresh
+    steps = {f"one {LIVE_E}-event batch folded (aggregates, rings, history)": (lambda: updater.apply(batches[1]), 5),
+             f"the same with the [{EMB_T}, {cfg.clusters_per_tweet}] tweet-embedding fold":
+                 (lambda: emb.apply(batches[1]), 5),
+             f"a refresh_index to [{shape.C}, {cfg.tweets_per_cluster}]": (lambda: emb.refresh_index(refreshed), 3)}
+    return launches, {"kernels": kernels, "steps": steps}
+
+
+def phase_new_path_times(tier, live):
+    """The device times of the exact-tier and live-update paths: each scan
+    with its ops, a fold and a refresh (their kernels; the uploads' copies
+    left out), then the kernels at the refreshed-index query's shapes."""
+    for label, scan in tier.items():
+        scan_profile(scan, label)
+    times = {label: device_ms(fn, reps, kernels_only=True) for label, (fn, reps) in live["steps"].items()}
+    print("live: device time of " + "; ".join(f"{label} {ms:.3f} ms" for label, ms in times.items()))
+    live["kernels"]()
 
 
 def time_top_k(dev, Q, N, k, label):
@@ -1179,16 +1629,19 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     world = build_world(dev)
-    sann_launches, *sann_rows = phase_retrieval(*world)
+    sann_launches, sann_ids, sann_scores, sann_recall = phase_retrieval(*world)
     by_path = {"sann": sann_launches}
     cand_launches, cand_world = phase_candidates(dev)
     by_path.update(cand_launches)
-    by_path["foryou"] = phase_foryou(dev, sann_rows, cand_world)
+    by_path["foryou"], fy = phase_foryou(dev, (sann_ids, sann_scores), cand_world)
     phase_candidate_kernels(dev, cand_world)
     kernels = phase_kernels(world[0], world[6], world[7])
     phase_gather_sweep(dev)
     phase_collapse_sweep(dev)
     phase_ranking(dev)
+    by_path["exact_tier"], tier_scans = phase_exact_tier(world, (sann_ids, sann_scores), sann_recall, fy)
+    by_path["live"], live_times = phase_live_updates(dev, world, fy)
+    phase_new_path_times(tier_scans, live_times)
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),

@@ -276,3 +276,46 @@ def test_top_k_on_tie_heavy_rows_keeps_lax_top_k_order(seed, wide):
             want_values, want_idx = jax.lax.top_k(jnp.asarray(a), k)
             np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
             np.testing.assert_array_equal(values.numpy(), np.asarray(want_values))
+
+
+def _exact_both(corpus_ids, corpus_scores, src_np, **kw):
+    got = retrieval.exact_cosine_scan(torch.from_numpy(corpus_ids), torch.from_numpy(corpus_scores),
+                                      SparseEmbedding(*(torch.from_numpy(a) for a in src_np)), **kw)
+    want = jr.exact_cosine_scan(jnp.asarray(corpus_ids), jnp.asarray(corpus_scores),
+                                js.SparseEmbedding(*(jnp.asarray(a) for a in src_np)), **kw)
+    return tuple(g.numpy() for g in got), tuple(np.asarray(w) for w in want)
+
+
+@pytest.mark.parametrize("where", ["sources", "corpus", "both"])
+def test_exact_scan_out_of_range_cluster_ids_follow_jax(where):
+    """Cluster ids -1, C+3 and -(C+2): the densifying scatter wraps a
+    negative source id by +C and drops one still outside [0, C) (C+3, and
+    -(C+2) wrapped to -2); the corpus gather reads the wrapped, clamped row."""
+    rng = np.random.default_rng(9)
+    T, K, block = 128, 6, 64
+    corpus_ids = np.stack([rng.choice(C, size=K, replace=False) for _ in range(T)]).astype(np.int32)
+    corpus_scores = rng.uniform(0.1, 1.0, size=(T, K)).astype(np.float32)
+    src_ids, src_scores = make_sources()
+    if where in ("sources", "both"):
+        src_ids[0, :3] = [-1, C + 3, -(C + 2)]
+        src_ids[2, 1] = -1
+    if where in ("corpus", "both"):
+        corpus_ids[3, :3] = [-1, C + 3, -(C + 2)]
+        corpus_ids[70, 0] = -1
+        corpus_ids[100, 5] = C + 3
+    (got_rows, got_scores), (want_rows, want_scores) = _exact_both(
+        corpus_ids, corpus_scores, (src_ids, src_scores), num_clusters=C, max_results=30, block=block)
+    assert_same_topk(np.where(got_rows < 0, PAD_ID, got_rows), got_scores,
+                     np.where(want_rows < 0, PAD_ID, want_rows), want_scores)
+    # the same as ids that name JAX's rows outright (source C+3 and -(C+2) dropped)
+    named_src = np.where(src_ids == -1, C - 1, src_ids)
+    named_src_scores = np.where((named_src == C + 3) | (named_src == -(C + 2)), 0.0, src_scores).astype(np.float32)
+    named_src = np.where((named_src == C + 3) | (named_src == -(C + 2)), 0, named_src).astype(np.int32)
+    named_corpus = np.where(corpus_ids == -1, C - 1, corpus_ids)
+    named_corpus = np.where(named_corpus == C + 3, C - 1, np.where(named_corpus == -(C + 2), 0, named_corpus))
+    named = retrieval.exact_cosine_scan(
+        torch.from_numpy(named_corpus.astype(np.int32)), torch.from_numpy(corpus_scores),
+        SparseEmbedding(torch.from_numpy(named_src), torch.from_numpy(named_src_scores)),
+        num_clusters=C, max_results=30, block=block)
+    np.testing.assert_array_equal(got_rows, named[0].numpy())
+    np.testing.assert_array_equal(got_scores, named[1].numpy())

@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from the_algorithm_tpu_torch.ops.gather import jax_rows
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID
 
 
@@ -56,9 +57,11 @@ def get_intersection(
     candidate_edge: EdgeType,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(count [C], user_degree) — ``ServerGetIntersectionHandler`` analog:
-    count[c] = |edge(user, user_edge) ∩ edge(candidate_c, candidate_edge)|."""
-    a_row = tables.neighbors[int(user_edge), user_id]  # [D]
-    b_rows = tables.neighbors[int(candidate_edge), candidate_ids]  # [C, D]
+    count[c] = |edge(user, user_edge) ∩ edge(candidate_c, candidate_edge)|.
+    An id outside [0, U) reads the row a JAX gather reads (:func:`jax_rows`)."""
+    U, dev = tables.num_users, tables.neighbors.device
+    a_row = tables.neighbors[int(user_edge), jax_rows(torch.as_tensor(user_id, device=dev), U)]  # [D]
+    b_rows = tables.neighbors[int(candidate_edge), jax_rows(torch.as_tensor(candidate_ids, device=dev), U)]  # [C, D]
     return intersection_count(a_row[None, :], b_rows), (a_row != PAD_ID).sum()
 
 

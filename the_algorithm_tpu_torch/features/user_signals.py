@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from the_algorithm_tpu_torch.core.device import resolve
+from the_algorithm_tpu_torch.ops.gather import jax_rows
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID
 
 
@@ -97,9 +98,11 @@ def fetch(
     *,
     min_timestamp=None,
 ):
-    """(target_ids[W], timestamps[W], valid[W]) for one user+signal."""
-    ids = store.target_ids[user_id, int(signal_type)]
-    ts = store.timestamps[user_id, int(signal_type)]
+    """(target_ids[W], timestamps[W], valid[W]) for one user+signal. A user id
+    outside [0, U) reads the row a JAX gather reads (:func:`jax_rows`)."""
+    u = jax_rows(torch.as_tensor(user_id, device=store.target_ids.device), store.target_ids.shape[0])
+    ids = store.target_ids[u, int(signal_type)]
+    ts = store.timestamps[u, int(signal_type)]
     valid = ids != PAD_ID
     if min_timestamp is not None:
         valid = valid & (ts >= min_timestamp)

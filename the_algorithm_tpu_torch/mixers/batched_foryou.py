@@ -14,8 +14,7 @@ phase-batches the whole product:
 
 The step order and semantics mirror ``RecommendationPipeline.run``: dedup is
 first-wins in pipeline order, global filters run between hydration and
-scoring, author diversity decays repeat authors multiplicatively. The
-exact-scan and tiered SANN sources come with the port's exact tier.
+scoring, author diversity decays repeat authors multiplicatively.
 """
 
 from __future__ import annotations
@@ -26,10 +25,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from the_algorithm_tpu_torch.core.decider import Decider
 from the_algorithm_tpu_torch.graph import uteg
 from the_algorithm_tpu_torch.mixers import device_hydration as dh
 from the_algorithm_tpu_torch.mixers import feature_schema as fs
-from the_algorithm_tpu_torch.ops.sparse import PAD_ID
+from the_algorithm_tpu_torch.mixers.home_products import EXACT_RETRIEVAL_TIER
+from the_algorithm_tpu_torch.ops import retrieval
+from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 from the_algorithm_tpu_torch.pipeline.component import Candidate
 from the_algorithm_tpu_torch.search import earlybird as eb
 
@@ -367,4 +369,108 @@ class UtegBatchSource(BatchCandidateSource):
             c = CandidateColumns(ids[i][ok], scores[i][ok])
             c.cols["social_proof"] = proof[i][ok].astype(np.float32)
             out.append(c)
+        return out
+
+
+class ExactScanBatchSource(BatchCandidateSource):
+    """Full-corpus exact cosine retrieval as a product source
+    (:func:`~the_algorithm_tpu_torch.ops.retrieval.exact_cosine_scan`), on
+    the corpus tensors' device.
+
+    ``turbo`` is the at-scale tier's operating point: the bf16 gather and
+    the JAX package's approximate per-block collectors (ranked exactly
+    here; its recall is measured against the f32 scan, not assumed).
+    """
+
+    name = "simclusters_interested_in"  # serves the same SANN slot
+
+    def __init__(self, corpus_ids: torch.Tensor, corpus_scores: torch.Tensor,
+                 embedding_fn: Callable[[int], Tuple[np.ndarray, np.ndarray]], num_clusters: int,
+                 max_results: int = 200, row_to_id: Optional[np.ndarray] = None, block: int = 65536,
+                 turbo: bool = False, recall_target: float = 0.99):
+        self._ids = corpus_ids
+        self._scores = corpus_scores
+        self._emb = embedding_fn  # user_id -> (cl [N], sc [N]) numpy arrays
+        self._row_to_id = row_to_id
+        self._device = corpus_ids.device
+        self._scan_kw = dict(num_clusters=num_clusters, max_results=max_results, block=block,
+                             compute_dtype=torch.bfloat16 if turbo else torch.float32,
+                             approx_block_topk=turbo, recall_target=recall_target)
+
+    def dispatch(self, queries, params):
+        n = len(queries)
+        cls, scs = zip(*(self._emb(int(q.user_id)) for q in queries))
+        cls, scs = np.stack(cls), np.stack(scs)
+        # pad the query batch to a power of two with copies of the first
+        # query: a serving front's ragged tier counts then give a handful of
+        # scan shapes (the scan's cost barely depends on Q)
+        padded = max(1, 1 << (n - 1).bit_length())
+        if padded > n:
+            cls = np.concatenate([cls, np.repeat(cls[:1], padded - n, 0)])
+            scs = np.concatenate([scs, np.repeat(scs[:1], padded - n, 0)])
+        src = SparseEmbedding(torch.from_numpy(np.asarray(cls, np.int32)).to(self._device),
+                              torch.from_numpy(np.asarray(scs, np.float32)).to(self._device))
+        rows, scores = retrieval.exact_cosine_scan(self._ids, self._scores, src, **self._scan_kw)
+        return torch.stack([rows, scores.view(torch.int32)], dim=-1), n  # one fetch
+
+    def collect(self, handle):
+        packed, n = handle
+        packed = packed.cpu().numpy()[:n]
+        rows = packed[..., 0]
+        scores = packed[..., 1].view(np.float32)
+        out = []
+        for i in range(rows.shape[0]):
+            ids = rows[i]
+            if self._row_to_id is not None:
+                ids = self._row_to_id[ids]
+            ok = scores[i] > -np.inf
+            out.append(CandidateColumns(ids[ok], scores[i][ok]))
+        return out
+
+
+class TieredSannBatchSource(BatchCandidateSource):
+    """Quality-tier routing for the SANN leg ≡ the configapi experiment
+    bucketing pattern: requests whose user falls in the sticky decider
+    bucket (``exact_retrieval_tier`` availability dial) retrieve through the
+    EXACT full-corpus scan; the rest use the approximate cluster-index rows.
+    Per-request override: the ``exact_retrieval_tier`` Param of the
+    request's ``params`` (ambient ``param_scope`` layers included).
+    """
+
+    name = "simclusters_interested_in"
+    FEATURE = "exact_retrieval_tier"
+
+    def __init__(self, approx: BatchCandidateSource, exact: ExactScanBatchSource, decider: Decider):
+        self._approx = approx
+        self._exact = exact
+        self._decider = decider
+
+    def _in_tier(self, q, params) -> bool:
+        if params is not None:
+            forced = params(EXACT_RETRIEVAL_TIER)
+            if forced is not None:
+                return bool(forced)
+        return self._decider.is_available_for_id(self.FEATURE, int(q.user_id))
+
+    def dispatch(self, queries, params):
+        tiers = [self._in_tier(q, params) for q in queries]
+        exact_q = [q for q, t in zip(queries, tiers) if t]
+        approx_q = [q for q, t in zip(queries, tiers) if not t]
+        h_exact = self._exact.dispatch(exact_q, params) if exact_q else None
+        return tiers, h_exact, approx_q
+
+    def collect(self, handle):
+        tiers, h_exact, approx_q = handle
+        exact_cols = self._exact.collect(h_exact) if h_exact is not None else []
+        approx_cols = self._approx.get_batch(approx_q, None) if approx_q else []
+        out, ei, ai = [], 0, 0
+        for t in tiers:  # stream order restored
+            if t:
+                c = exact_cols[ei]
+                c.cols["exact_tier"] = np.ones(len(c), np.float32)
+                out.append(c)
+                ei += 1
+            else:
+                out.append(approx_cols[ai])
+                ai += 1
         return out

@@ -900,17 +900,20 @@ class DeviceHydrationScorer:
         self.diversity_decay = diversity_decay
         self.diversity_floor = diversity_floor
 
-    def _assemble(self, req: DeviceRequests) -> torch.Tensor:
-        return assemble(self.tables, self.fns, req, n_sources=self.builder.n_sources,
-                        agg_packed=self.tables.agg_packed)
+    def _assemble(self, req: DeviceRequests, tables: DeviceWideTables) -> torch.Tensor:
+        """The features of one batch from ONE snapshot of the tables: a
+        writer (``live_updates.LiveUpdater``) swaps ``self.tables`` whole, so
+        a batch reads ``self.tables`` once and passes that down."""
+        return assemble(tables, self.fns, req, n_sources=self.builder.n_sources, agg_packed=tables.agg_packed)
 
     def _run(self, packed: torch.Tensor) -> torch.Tensor:
         """The device pass over one packed batch: [R, PB, H+1] (probs ‖
         combined), or with ``select_top_k`` [R, K, H+2] (probs ‖ score ‖
         bitcast id) — one array, so one fetch."""
+        tables = self.tables  # this batch's snapshot
         with torch.inference_mode():
             req = unpack_requests(packed, self.builder.follow_width, compact_rows=self._compact_rows)
-            x = self._assemble(req)
+            x = self._assemble(req, tables)
             R, PB, F = x.shape
             probs = torch.sigmoid(self.model(x.reshape(R * PB, F).to(self.compute_dtype)))
             probs = probs.reshape(R, PB, -1).float()
@@ -931,7 +934,7 @@ class DeviceHydrationScorer:
         """[B, F] device-assembled feature matrix (parity/debug path)."""
         req = self.builder.build(query, candidates)
         with torch.inference_mode():
-            x = self._assemble(DeviceRequests(*(torch.from_numpy(a).to(self.device) for a in req)))
+            x = self._assemble(DeviceRequests(*(torch.from_numpy(a).to(self.device) for a in req)), self.tables)
         return x[0, :len(candidates)].cpu().numpy()
 
     def score_requests(self, batch):

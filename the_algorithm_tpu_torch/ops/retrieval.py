@@ -336,33 +336,53 @@ def exact_cosine_scan(
     num_clusters: int,
     max_results: int,
     block: int = 65536,
+    compute_dtype: torch.dtype = torch.float32,
+    approx_block_topk: bool = False,
+    recall_target: float = 0.99,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact full-corpus cosine top-K → (corpus rows [Q, X], scores [Q, X]).
 
-    The JAX package's exact f32 path: densify each query over the clusters
-    once, then score the corpus ``block`` rows at a time (a gather of the
-    transposed query table and a batched product) and fold each block's
-    top-X into a running top-X. T must be a multiple of ``block``. Rows whose
-    score is not finite come back as -1.
+    Densify each query over the clusters once, then score the corpus
+    ``block`` rows at a time (a gather of the transposed query table and a
+    K-sum) and fold each block's top-X into a running top-X. T must be a
+    multiple of ``block``. Rows whose score is not finite come back as -1.
+
+    Cluster ids outside [0, C) that are not PAD_ID follow the JAX package:
+    the densifying scatter wraps a negative source id by +C and drops one
+    still outside [0, C); the corpus gather reads :func:`jax_rows`' row.
+
+    ``compute_dtype=torch.bfloat16`` rounds the transposed query table and
+    the corpus scores to bf16, as the JAX package does; the inverse norms
+    come from the unrounded f32 scores. The gather moves bf16, and the
+    K-sum runs in f32 (JAX: ``preferred_element_type=f32``): bf16 products
+    are exact in f32, so only the summation order differs from JAX.
+
+    ``approx_block_topk`` stands for the JAX package's ``lax.approx_max_k``
+    per block, which torch lacks; JAX on the CPU returns ``top_k``'s indices
+    for it, and the port ranks every block exactly (:func:`top_k`, tie order
+    kept). ``recall_target`` is accepted for the same signature and unused.
     """
+    del approx_block_topk, recall_target  # every block is ranked exactly
     Q = sources.ids.shape[0]
     T, K = corpus_ids.shape
     if T % block != 0:
         raise ValueError(f"corpus length {T} not a multiple of {block}")
     X = min(max_results, block)
     dev = corpus_ids.device
-    valid_q = sources.ids != PAD_ID
-    q_dense = torch.zeros((Q, num_clusters), dtype=torch.float32, device=dev)
-    q_dense.scatter_add_(
-        1, torch.where(valid_q, sources.ids, 0).long(), torch.where(valid_q, sources.scores, 0.0)
-    )
+    C = num_clusters
+    src = torch.where(sources.ids < 0, sources.ids + C, sources.ids)
+    keep = (sources.ids != PAD_ID) & (src >= 0) & (src < C)
+    q_dense = torch.zeros((Q, C), dtype=torch.float32, device=dev)
+    q_dense.scatter_add_(1, torch.where(keep, src, 0).long(), torch.where(keep, sources.scores, 0.0))
     q_norm = torch.sqrt(torch.sum(q_dense * q_dense, dim=1, keepdim=True))
-    q_dense_t = (q_dense / torch.clamp(q_norm, min=1e-9)).T.contiguous()  # [C, Q]
+    q_dense_t = (q_dense / torch.clamp(q_norm, min=1e-9)).T.to(compute_dtype).contiguous()  # [C, Q]
 
     valid_t = corpus_ids != PAD_ID
-    safe_ids = torch.where(valid_t, corpus_ids, 0)
+    safe_ids = jax_rows(torch.where(valid_t, corpus_ids, 0), C)
     t_scores = torch.where(valid_t, corpus_scores, 0.0)
     inv_norm = 1.0 / torch.clamp(torch.sqrt(torch.sum(t_scores * t_scores, dim=1)), min=1e-9)
+    # bf16: the rounded scores, carried back to f32 for the K-sum
+    t_scores = t_scores.to(compute_dtype).float()
     live_row = valid_t.any(dim=1)
 
     top_scores = torch.full((Q, X), -torch.inf, dtype=torch.float32, device=dev)
@@ -370,7 +390,8 @@ def exact_cosine_scan(
     for start in range(0, T, block):
         sl = slice(start, start + block)
         qw = q_dense_t.index_select(0, safe_ids[sl].reshape(-1)).reshape(block, K, Q)
-        s = torch.bmm(t_scores[sl].unsqueeze(1), qw).squeeze(1).T  # [Q, block]
+        # an f32 product: bmm of bf16 inputs would round every score to bf16
+        s = torch.bmm(t_scores[sl].unsqueeze(1), qw.float()).squeeze(1).T  # [Q, block]
         s = s * inv_norm[sl][None, :]
         s = torch.where(live_row[sl][None, :], s, -torch.inf)
         bs, bi = top_k(s, X)
