@@ -99,10 +99,29 @@ Phases, each printing its result on its own line:
     and of a refresh, and the kernels at the refreshed-index query's
     shapes. Steps 9-11 run last: on the card, the profiler sessions that
     follow their thousands of launches and copies miss many of the copy
-    events a short session makes.
+    events a short session makes;
+12. tweet_mixer, in a child process after the main process's last profiler
+    session (``chip_smoke.py --tweet-mixer`` runs it alone): tweet-mixer's
+    Home product (20 pipelines) at bench.py's sizes
+    (``data/tweet_mixer_world.py``) over the step-3 SANN world and the
+    step-4 candidate world, built there from the same seeds, and TwHIN and
+    two-tower models (16,384 users x 2,000,000 items x 128) built on the
+    card, the item table exported once (CUDA events); each pipeline called
+    directly for 8 users (none may come back empty: run_product fails open),
+    one counted request whose launches must equal the count from its routed
+    pipelines, the five dense engines' top-200 for 4 users against a float64
+    numpy brute force, Home for 2 users against the port on the CPU, serial
+    requests and the 8-thread ``TweetMixer`` fan-out on the host clock; then
+    one profiler session of 3 requests (each pipeline's device time) and
+    both kernels against their plain versions at its per-query shapes
+    (SANN: run_collapse [1, 20,000] k=2, row_gather 50 x 3 x 1,600 B;
+    single 512-byte TwHIN rows; the UTEG family's seed rows and dedup at
+    R=1, one per seed count; UTG's two hops and dedup at B=1), with no
+    copy_ yardstick.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
-UTEG, UTG, For You, training, the exact tier, live updates), error and times, and, as the last line,
+UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
+updates), error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
 """
@@ -129,12 +148,15 @@ from torch.autograd import DeviceType
 from the_algorithm_tpu_torch import _build
 from the_algorithm_tpu_torch.core.config import Params, param_scope
 from the_algorithm_tpu_torch.core.decider import Decider
-from the_algorithm_tpu_torch.data import foryou_world, sann_world
+from the_algorithm_tpu_torch.data import foryou_world, sann_world, tweet_mixer_world
 from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.mixers import batched_foryou as bf
+from the_algorithm_tpu_torch.mixers import candidate_pipeline_catalog as cat
 from the_algorithm_tpu_torch.mixers import device_hydration as dh
 from the_algorithm_tpu_torch.mixers import feature_schema as fs
 from the_algorithm_tpu_torch.mixers import live_updates as lu
+from the_algorithm_tpu_torch.mixers import tweet_mixer as tm
+from the_algorithm_tpu_torch.mixers import tweet_mixer_products as tmp
 from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
 from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
 from the_algorithm_tpu_torch.mixers.home_products import EXACT_RETRIEVAL_TIER
@@ -178,6 +200,12 @@ MIN_SEEN = 0.95  # the share of a session's kernel launches the profiler must re
 # in three whole runs), so the session holds enough copies that they stay
 # under 1 - MIN_SEEN of it
 COPY_REPS = 200
+# kernel events a session opened again should hold: the profiler leaves out
+# about a dozen events of a session whatever its length (a 3-call refresh_index
+# session of 162 kernels came up short five times running in a whole run), so
+# a session that came up short is opened again with enough calls that those
+# stay under 1 - MIN_SEEN of it
+MIN_EVENTS = 500
 # H100 SXM device memory rate (NVIDIA's data sheet): a kernel's bytes bound
 HBM_BYTES_PER_S = 3.35e12
 # the candidate sources as bench.py's For You phase runs them (bench.py:497-500)
@@ -249,6 +277,14 @@ def per_call_ms(kernels, calls: int):
     return ms
 
 
+def more_calls(reps: int, kernels) -> int:
+    """The calls for a session opened again after one of ``reps`` calls that
+    saw ``kernels`` and came up short: enough for MIN_EVENTS kernel events
+    (``reps`` again when that session saw none)."""
+    events = sum(e.count for e in kernels)
+    return max(reps, -(-reps * MIN_EVENTS // events)) if events else reps
+
+
 def device_ms(fn, reps: int, kernels_only: bool = False) -> float:
     """Device time of one call of ``fn`` in ms, from ``torch.profiler``'s
     kernel events of ``reps`` warm calls (:func:`per_call_ms`). Unlike
@@ -256,6 +292,7 @@ def device_ms(fn, reps: int, kernels_only: bool = False) -> float:
     ``kernels_only`` leaves the copies and fills out too."""
     for _ in range(3):
         fn()
+    tried = []
     for attempt in range(PROFILER_ATTEMPTS):  # a session that saw too little is measured again, a second later
         time.sleep(attempt and 1.0)
         PROFILER["again"] += attempt > 0
@@ -264,11 +301,13 @@ def device_ms(fn, reps: int, kernels_only: bool = False) -> float:
         ms = per_call_ms(kernels, reps)
         if ms is not None:
             return ms
+        tried.append(f"{sum(e.count for e in kernels)} kernels of {reps} calls")
+        reps = more_calls(reps, kernels)
     seen = Counter()
     for e in kernels:
         seen[e.key[:60]] += e.count
-    raise RuntimeError(f"chip_smoke: torch.profiler saw too few kernels in {PROFILER_ATTEMPTS} sessions of {reps} "
-                       f"calls (after {PROFILER['sessions']} sessions); the last saw {dict(seen)}")
+    raise RuntimeError(f"chip_smoke: torch.profiler saw too few kernels in {PROFILER_ATTEMPTS} sessions "
+                       f"({', '.join(tried)}; after {PROFILER['sessions']} sessions); the last saw {dict(seen)}")
 
 
 def timed_pair(kernel, plain, reps=50, clock=cuda_ms):
@@ -290,10 +329,11 @@ def device_pair(kernel, plain, name: str, reps: int = 50):
         time.sleep(attempt and 1.0)
         PROFILER["again"] += attempt > 0
         kernels = session_kernels([plain] * reps + [kernel] * (2 * reps) + [plain] * reps)
-        mine = per_call_ms([e for e in kernels if name in e.key], 2 * reps)
-        rest = per_call_ms([e for e in kernels if name not in e.key], 2 * reps)
-        if mine is not None and rest is not None:
-            return mine, rest
+        mine, rest = [e for e in kernels if name in e.key], [e for e in kernels if name not in e.key]
+        mine_ms, rest_ms = per_call_ms(mine, 2 * reps), per_call_ms(rest, 2 * reps)
+        if mine_ms is not None and rest_ms is not None:
+            return mine_ms, rest_ms
+        reps = max(more_calls(reps, mine), more_calls(reps, rest))
     raise RuntimeError(f"chip_smoke: torch.profiler saw too few of {name}'s or the plain version's kernels in "
                        f"{PROFILER_ATTEMPTS} sessions")
 
@@ -360,10 +400,11 @@ def build_world(dev):
     return shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, index, sources
 
 
-def time_collapse(entries, label):
+def time_collapse(entries, label, copy_yardstick=True):
     """run_collapse against its plain version on the card: the same (row, id)
     slots, sums within SUM_RTOL / SUM_ATOL, both clocks, TB/s and the share
-    of the bytes bound."""
+    of the bytes bound; with ``copy_yardstick``, the device time of ``copy_``
+    moving the same bytes (its own profiler session)."""
     got = seg_scan.run_collapse_sorted(*entries)
     want = seg_scan.run_collapse_sorted_plain(*entries)
     torch.cuda.synchronize()
@@ -378,9 +419,11 @@ def time_collapse(entries, label):
     dev_ms, plain_dev_ms = device_pair(kernel, plain, "run_collapse")
     # the same bytes through the device's own copy kernel: what the memory
     # system gives this traffic in practice
-    copies = [torch.empty_like(t) for t in entries]
-    copy_ms = device_ms(lambda: [c.copy_(t) for c, t in zip(copies, entries)], COPY_REPS)
-    del copies
+    copy_ms = None
+    if copy_yardstick:
+        copies = [torch.empty_like(t) for t in entries]
+        copy_ms = device_ms(lambda: [c.copy_(t) for c, t in zip(copies, entries)], COPY_REPS)
+        del copies
     moved = 2 * sum(t.numel() * t.element_size() for t in entries)  # every slot read + written
     bound = bound_ms(moved)
     Q, W = entries[0].shape
@@ -388,7 +431,7 @@ def time_collapse(entries, label):
           f"moved, same (row, id) slots, max |sum err| {err:.3g} (rtol {SUM_RTOL}, atol {SUM_ATOL}); device "
           f"{dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s, {100 * bound / dev_ms:.1f}% of its {bound:.4f} ms "
           f"bound) vs plain {plain_dev_ms:.4f} ms; events {ms:.4f} ms vs {plain_ms:.4f} ms; copy_ of the same "
-          f"bytes {copy_ms:.4f} ms")
+          f"bytes {'not measured' if copy_ms is None else f'{copy_ms:.4f} ms'}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
                 bound_ms=bound, bound_by="bytes", library_ms=None, copy_ms=copy_ms)
 
@@ -2062,32 +2105,370 @@ def phase_training(dev):
         return light_ranker_lifecycle(dev, root)
 
 
-def training_main() -> int:
-    """``chip_smoke.py --training``: the training phase alone, on the card,
-    its launches as the last line of output."""
+def child_main(phase) -> int:
+    """``chip_smoke.py --training`` or ``--tweet-mixer``: that phase alone,
+    on the card, its launches as the last line of output."""
     require(torch.cuda.is_available(), "no CUDA device: this script runs on an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.lib()
-    print(json.dumps(phase_training(torch.device("cuda", 0))))
+    print(json.dumps(phase(torch.device("cuda", 0))))
     return 0
 
 
-def phase_training_apart():
-    """The training phase in a child process on the same card, its output
-    passed on. On the card a process that has run ~100 profiler sessions
-    drops Memcpy events of short sessions: with this phase in the main
-    process, the copy_ yardsticks of the light ranker's collapse and of the
-    live phase's refreshed-index query saw 92 of 100 and 142 of 150 copies
-    and failed their runs. Apart, each process runs as many sessions as
-    before this phase existed."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--training"], capture_output=True, text=True,
+def phase_apart(flag: str, what: str):
+    """A phase in a child process on the same card, its output passed on,
+    its launches returned. On the card the profiler of a process drops
+    events of later sessions after some phases: with the training phase in
+    the main process (~10 sessions), the copy_ yardsticks of the light
+    ranker's collapse and of the live phase's refreshed-index query saw 92
+    of 100 and 142 of 150 copies; with the tweet_mixer phase (thousands of
+    launches from the main thread and an 8-thread fan-out), the next
+    ring-shape session saw 46 of 50 kernels five times running. Both failed
+    their runs. Apart, each process runs as many sessions as before those
+    phases existed. The tweet_mixer child runs after the main process's last
+    session: run before the exact-tier and live phases, or first, it left
+    the live fold's session short five times running in both runs that got
+    there."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag], capture_output=True, text=True,
                           timeout=900)
     sys.stderr.write(proc.stderr)
     lines = proc.stdout.strip().splitlines()
     sys.stdout.write("".join(line + "\n" for line in lines[:-1]))
-    require(proc.returncode == 0 and lines, f"the training phase failed (exit {proc.returncode})")
+    require(proc.returncode == 0 and lines, f"the {what} phase failed (exit {proc.returncode})")
     return json.loads(lines[-1])
+
+
+# tweet-mixer's Home product (tweet_mixer_products.py:48-59): 20 pipelines over
+# the step-3 SANN world, the step-4 candidate world and TwHIN / two-tower
+# models at their default widths over the 2M-tweet corpus, nothing cut
+TM_SHAPE = tweet_mixer_world.FULL
+HOME = tmp.TweetMixerProduct.HOME_RECOMMENDED_TWEETS
+TM_DIRECT = 8  # served users whose 20 pipelines are called one by one
+TM_DENSE = 4  # users whose dense top-200s are held against float64
+TM_CPU = 2  # users whose Home request is held against the port on the CPU
+TM_SERIAL = 32  # serial Home requests on the host clock
+TM_PROFILED = 3  # Home requests in the profiler session
+# the dense engines: their pipeline, the table they scan, the query vector
+TM_DENSE_PIPES = ("twhin_consumer_based", "twhin_tweet_similarity", "deep_retrieval_user_tweet",
+                  "deep_retrieval_tweet_tweet", "two_tower_consumer")
+# dense top-200 against float64: f32 products of 128 terms
+DENSE_RTOL, DENSE_ATOL = 1e-5, 1e-6
+
+
+def dense_query(tw, name, q):
+    """(the table a dense pipeline scans, the vector it scans with) for query ``q``."""
+    t = cat._source_tweet(q)
+    return {"twhin_consumer_based": (tw.twhin.item_table, lambda: tw.twhin_user_vector(q.user_id)),
+            "twhin_tweet_similarity": (tw.twhin.item_table, lambda: tw.twhin_tweet_vector(t)),
+            "deep_retrieval_user_tweet": (tw.two_tower_items, lambda: tw.two_tower_user_vector(q.user_id)),
+            "deep_retrieval_tweet_tweet": (tw.two_tower_items, lambda: tw.two_tower_tweet_vector(t)),
+            "two_tower_consumer": (tw.two_tower_items, lambda: tw.two_tower_user_vector(q.user_id))}[name]
+
+
+def brute_force_dense(table, vectors, k):
+    """Float64 numpy top-k of ``table @ v`` for each of ``vectors`` [Q, D]:
+    (ids [Q, k], scores [Q, k]), ranked by score, then row."""
+    q64 = vectors.astype(np.float64)
+    scores = np.concatenate([table[s:s + (1 << 18)].cpu().numpy().astype(np.float64) @ q64.T
+                             for s in range(0, table.shape[0], 1 << 18)]).T  # [Q, N]
+    ids = np.empty((len(q64), k), np.int64)
+    for r, row in enumerate(scores):
+        part = np.argpartition(-row, k)[:k]
+        ids[r] = part[np.lexsort((part, -row[part]))]
+    return ids, np.take_along_axis(scores, ids, 1)
+
+
+def ranked_arrays(cands):
+    return np.array([[c.id for c in cands]], np.int64), np.array([[c.score for c in cands]], np.float32)
+
+
+def home_lists(catalog, q):
+    """Each routed Home pipeline's candidates for ``q`` by spec name, called
+    directly (not through run_product's fail-open), in routing order."""
+    routed = tmp.product_pipelines(catalog, HOME, q, Params())
+    return {spec.name: pipe.source.get(q, Params()) for spec, pipe in catalog if pipe in routed}
+
+
+def check_blend(got, want, moved, what):
+    """Two blended lists: ids equal at every place but where both ids moved
+    between the two sides' pipeline lists (near-ties); scores of equal ids
+    within EB_RTOL / EB_ATOL."""
+    require(len(got) == len(want), f"{what}: {len(got)} candidates against {len(want)}")
+    for a, b in zip(got, want):
+        if a.id != b.id:
+            require(a.id in moved and b.id in moved, f"{what}: id {a.id} against {b.id} away from a near-tie")
+        else:
+            require(abs(a.score - b.score) <= EB_ATOL + EB_RTOL * abs(b.score), f"{what}: id {a.id} scored apart")
+
+
+def phase_tweet_mixer(dev):
+    """tweet-mixer's Home product at bench.py's sizes on the card: the world
+    (over the SANN and candidate worlds of steps 3-4, built from the same
+    seeds), each of the 20 pipelines called directly, one counted request,
+    the dense engines against float64, Home against the CPU, and the host
+    clock. Returns the counted launches and the world the profile at the
+    end of the run takes."""
+    t0 = time.perf_counter()
+    tw = tweet_mixer_world.build(TM_SHAPE, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    items = tweet_mixer_world.export_item_table(tw.two_tower)
+    require(torch.allclose(items, tw.two_tower_items, rtol=1e-6, atol=1e-7), "the item table export is not repeatable")
+    del items
+    export_ms = cuda_ms(lambda: tweet_mixer_world.export_item_table(tw.two_tower), 3)
+    tables = [tw.twhin.item_table, tw.twhin.user_table, tw.two_tower.item_table, tw.two_tower_items]
+    print(f"tweet_mixer: world (TwHIN and two-tower {TM_SHAPE.num_users} users x {TM_SHAPE.num_items} items x "
+          f"{TM_SHAPE.embed_dim}, tower {TM_SHAPE.tower_hidden}; {sum(t.numel() * 4 for t in tables) / 1e9:.2f} GB of "
+          f"tables, over the SANN and candidate worlds of steps 3-4) built in {build_s:.1f} s with the SANN and candidate "
+          f"worlds (set-up); the two-tower item "
+          f"table exported through the item tower in {export_ms:.2f} ms (CUDA events, mean of 3 warm exports)")
+
+    # each Home pipeline called directly: run_product and the engines fail open,
+    # so only a direct call shows that an engine ran on the card
+    catalog = cat.build_catalog(tw.source_world())
+    sizes = Counter()
+    for q in tw.queries[:TM_DIRECT]:
+        lists = home_lists(catalog, q)
+        require(len(lists) == 20, f"user {q.user_id}: {len(lists)} Home pipelines routed, not 20")
+        for name, got in lists.items():
+            require(len(got) > 0, f"user {q.user_id}: Home pipeline {name} returned nothing")
+            require(all(np.isfinite(c.score) for c in got), f"user {q.user_id}: {name} returned non-finite scores")
+            sizes[name] += len(got) / TM_DIRECT
+    print(f"tweet_mixer: all 20 Home pipelines non-empty for {TM_DIRECT} users called directly; mean candidates "
+          f"{dict((k, round(v, 1)) for k, v in sizes.items())}")
+
+    # the main path, counted: one Home request (a fresh catalog: the lookup cache cold)
+    q = tw.queries[0]
+    fresh = cat.build_catalog(tw.source_world())
+    names = [s.name for s, p in fresh if p in tmp.product_pipelines(fresh, HOME, q, Params())]
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    home = tmp.run_product(fresh, HOME, q)
+    torch.cuda.synchronize()
+    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    want = tweet_mixer_world.expected_launches(names, q)
+    print(f"tweet_mixer: one Home request (user {q.user_id}, {len(q.recent_engagement_ids)} recent tweets) -> "
+          f"{len(home)} candidates, launches {launches}; the routed pipelines make {want}")
+    require(launches == want, f"Home launches {launches}, the routed pipelines make {want}")
+    require(len(home) == tmp.PRODUCT_SPECS[HOME].max_results and len({c.id for c in home}) == len(home),
+            "the Home request did not fill its 400 distinct candidates")
+
+    # the dense engines' top-200 against a float64 numpy brute force
+    moved_dense, t0 = 0, time.perf_counter()
+    by_table = {}
+    for q in tw.queries[:TM_DENSE]:
+        lists = home_lists(catalog, q)
+        for name in TM_DENSE_PIPES:
+            table, vec = dense_query(tw, name, q)
+            by_table.setdefault(id(table), (table, []))[1].append((name, q, vec().cpu().numpy(), lists[name]))
+    for table, rows in by_table.values():
+        want_ids, want_scores = brute_force_dense(table, np.stack([v for _, _, v, _ in rows]), 200)
+        for r, (name, q, _, got) in enumerate(rows):
+            ids, scores = ranked_arrays(got)
+            moved_dense += check_same_ranking(ids, scores, want_ids[r:r + 1], want_scores[r:r + 1], DENSE_RTOL,
+                                              DENSE_ATOL, f"{name} user {q.user_id} against float64")
+    print(f"tweet_mixer: {len(TM_DENSE_PIPES)} dense engines x {TM_DENSE} users: top-200 equal to a float64 numpy "
+          f"brute force over {TM_SHAPE.num_items} items ({moved_dense} ranks hold another id, all within near-ties; "
+          f"scores rtol {DENSE_RTOL}, atol {DENSE_ATOL}; {time.perf_counter() - t0:.1f} s)")
+
+    # Home on the card against the port on the CPU
+    t0 = time.perf_counter()
+    cpu_world = tw.to("cpu")
+    cpu_catalog = cat.build_catalog(cpu_world.source_world())
+    moved = 0
+    for q in tw.queries[:TM_CPU]:
+        card, cpu = home_lists(catalog, q), home_lists(cpu_catalog, q)
+        require(list(card) == list(cpu), f"user {q.user_id}: routed pipelines differ")
+        moved_ids = set()
+        for name in card:
+            a, b = ranked_arrays(card[name]), ranked_arrays(cpu[name])
+            moved += check_same_ranking(*a, *b, EB_RTOL, EB_ATOL, f"Home {name} user {q.user_id}, card against CPU")
+            moved_ids |= {int(x) for x, y in zip(a[0][0], b[0][0]) if x != y} | {
+                int(y) for x, y in zip(a[0][0], b[0][0]) if x != y}
+        check_blend(tmp.run_product(catalog, HOME, q), tmp.run_product(cpu_catalog, HOME, q), moved_ids,
+                    f"Home user {q.user_id}, card against CPU")
+    del cpu_world, cpu_catalog
+    print(f"tweet_mixer: Home on the card equal to the port on the CPU for {TM_CPU} users: every pipeline's ranking "
+          f"and the blended 400 ({moved} pipeline ranks hold another id, all within near-ties; rtol {EB_RTOL}, atol "
+          f"{EB_ATOL}; {time.perf_counter() - t0:.1f} s with the CPU run)")
+
+    # host clock, before any profiler session of this phase: serial Home
+    # requests (distinct users, the lookup cache cold), then the 8-thread fan-out
+    warm = cat.build_catalog(tw.source_world())
+    for q in tw.queries[-4:]:
+        tmp.run_product(warm, HOME, q)
+    serial = cat.build_catalog(tw.source_world())
+    lat, blended = [], {}
+    for q in tw.queries[:TM_SERIAL]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blended[q.user_id] = tmp.run_product(serial, HOME, q)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    lat = np.array(lat) * 1e3
+    print(f"tweet_mixer: serial Home {len(lat) / lat.sum() * 1e3:.1f} requests/s, p50 {np.percentile(lat, 50):.2f} ms, "
+          f"p99 {np.percentile(lat, 99):.2f} ms ({len(lat)} requests; host clock; not a benchmark)")
+    # the fan-out, warmed on the warm catalog's engines and timed on a fresh
+    # catalog's: the lookup cache cold, as in the serial run
+    def fan_out(catalog):
+        return tm.TweetMixer([p.source for p in tmp.product_pipelines(catalog, HOME, tw.queries[0], Params())],
+                             max_results=tmp.PRODUCT_SPECS[HOME].max_results, max_concurrency=8)
+
+    warm_mixer, mixer = fan_out(warm), fan_out(cat.build_catalog(tw.source_world()))
+    try:
+        warm_mixer.get_candidates(tw.queries[-1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fanned = {q.user_id: mixer.get_candidates(q) for q in tw.queries[:TM_SERIAL]}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        warm_mixer.close()
+        mixer.close()
+    print(f"tweet_mixer: TweetMixer with an 8-thread fan-out {TM_SERIAL / dt:.1f} requests/s ({1e3 * dt / TM_SERIAL:.2f} "
+          f"ms a request; host clock; not a benchmark)")
+    same = sum([c.id for c in fanned[u]] == [c.id for c in blended[u]] for u in fanned)
+    require(same == len(fanned), f"the fan-out blended {len(fanned) - same} of {len(fanned)} requests otherwise than "
+                                 "run_product")
+    torch.cuda.empty_cache()
+    return launches, tw
+
+
+def home_device_ms(tw, reps):
+    """Device time of each Home pipeline in one request, from ONE profiler
+    session of ``reps`` requests (fresh catalogs, distinct users): each
+    kernel is charged to the pipeline whose range launched it."""
+    PROFILER["sessions"] += 1
+    catalogs = [cat.build_catalog(tw.source_world()) for _ in range(reps)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for catalog, q in zip(catalogs, tw.queries[-reps:]):
+            routed = tmp.product_pipelines(catalog, HOME, q, Params())
+            for spec, pipe in catalog:
+                if pipe in routed:
+                    with torch.profiler.record_function(f"tm:{spec.name}"):
+                        pipe.source.get(q, Params())
+        torch.cuda.synchronize()
+    # the ranges show up on the device too (as annotations spanning their kernels): left out of the total
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not e.key.startswith("tm:")) / 1000 / reps
+    by, kernels = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        p = e
+        while p is not None and not p.name.startswith("tm:"):
+            p = p.cpu_parent
+        name = p.name[3:] if p is not None else "(outside the pipelines)"
+        for k in e.kernels:
+            by[name] += k.duration / 1000 / reps
+            kernels[k.name[:50]] += k.duration / 1000 / reps
+    return by, kernels, total
+
+
+def home_graph_inputs(tw, q):
+    """The inputs one Home request of ``q`` hands the batched graph paths,
+    by pipeline: each UTEG-family engine's [1, S] seeds and weights to
+    ``uteg.recommend`` and each UTG call's [1] source tweet to
+    ``graphjet.related_tweets`` (a fresh catalog, each pipeline called
+    directly)."""
+    catalog = cat.build_catalog(tw.source_world())
+    routed = tmp.product_pipelines(catalog, HOME, q, Params())
+    seen, current = {}, [None]
+    recommend, related = uteg.recommend, graphjet.related_tweets
+
+    def recommend_seen(graph, seed_ids, seed_weights, **kw):
+        seen.setdefault(current[0], []).append(("uteg", graph, seed_ids, seed_weights))
+        return recommend(graph, seed_ids, seed_weights, **kw)
+
+    def related_seen(left, right, sources, **kw):
+        seen.setdefault(current[0], []).append(("utg", left, right, sources))
+        return related(left, right, sources, **kw)
+
+    uteg.recommend, graphjet.related_tweets = recommend_seen, related_seen
+    try:
+        for spec, pipe in catalog:
+            if pipe in routed:
+                current[0] = spec.name
+                pipe.source.get(q, Params())
+    finally:
+        uteg.recommend, graphjet.related_tweets = recommend, related
+    return seen
+
+
+def time_home_graph_kernels(tw, q):
+    """Both kernels at the UTEG family's R=1 shapes (one per seed count) and
+    at UTG's B=1 hops and dedup (one source tweet: every UTG call of the
+    request has these shapes), on ``q``'s own inputs."""
+    timed_seeds, utg = set(), None
+    for name, calls in home_graph_inputs(tw, q).items():
+        for call in calls:
+            if call[0] == "utg":
+                utg = utg or (name, *call[1:])
+                continue
+            _, graph, seed_ids, seed_weights = call
+            S = seed_ids.shape[1]
+            if S in timed_seeds:
+                continue
+            timed_seeds.add(S)
+            U, W = graph.tweet_ids.shape
+            time_gather(uteg.safe_rows(seed_ids, U).reshape(-1), tuple(graph),
+                        f"Home {name}'s seed rows, {S} rows x 3 tables [{U}, {W}] int32")
+            time_collapse(retrieval.sort_by_id(*uteg.engagement_entries(graph, seed_ids, seed_weights)),
+                          f"Home {name}'s sorted entries ({S} seeds)", copy_yardstick=False)
+    require(utg is not None, "the Home request made no UTG call")
+    name, left, right, sources = utg
+    hop1 = gather.jax_rows(sources, right.user_ids.shape[0])
+    time_gather(hop1, (right.user_ids, right.timestamps),
+                f"Home {name}'s first hop, 1 row x 2 tables [{right.user_ids.shape[0]}, {right.user_ids.shape[1]}] int32")
+    flat, ones, users = graphjet.cooccurrence_entries(left, right, sources)
+    hop2 = gather.jax_rows(torch.where(users != PAD_ID, users, 0), left.tweet_ids.shape[0]).reshape(-1)
+    time_gather(hop2, (left.tweet_ids, left.timestamps), f"Home {name}'s second hop, {hop2.numel()} rows x 2 tables "
+                                                         f"[{left.tweet_ids.shape[0]}, {left.tweet_ids.shape[1]}] int32")
+    time_collapse(retrieval.sort_by_id(flat, ones), f"Home {name}'s sorted entries", copy_yardstick=False)
+
+
+def phase_tweet_mixer_alone(dev):
+    """The tweet_mixer phase in its own process (``--tweet-mixer``), then its
+    profile and kernel timings. Returns the counted request's launches."""
+    launches, tw = phase_tweet_mixer(dev)
+    phase_tweet_mixer_times(tw)
+    return launches
+
+
+def phase_tweet_mixer_times(tw):
+    """After the phase's host-clock numbers: one Home request's device time
+    by pipeline, and both kernels against their plain versions at its
+    per-query shapes (no copy_ yardstick: after the phase's launches the
+    profiler may drop copy events of short sessions)."""
+    by, kernels, total = home_device_ms(tw, TM_PROFILED)
+    dense = sum(by[n] for n in TM_DENSE_PIPES)
+    dense_bound = bound_ms(len(TM_DENSE_PIPES) * TM_SHAPE.num_items * TM_SHAPE.embed_dim * 4)
+    print(f"tweet_mixer: one Home request's device time {total:.3f} ms, {sum(by.values()):.3f} of it charged to a "
+          f"pipeline (mean of {TM_PROFILED} requests, torch.profiler), by pipeline: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in by.most_common()))
+    print(f"tweet_mixer: the five dense engines {dense:.3f} ms of device time against their {dense_bound:.3f} ms bound "
+          f"(five [{TM_SHAPE.num_items}, {TM_SHAPE.embed_dim}] f32 tables read once at 3.35 TB/s); top kernels "
+          + ", ".join(f"{k} {v:.3f}" for k, v in kernels.most_common(6)))
+
+    q = tw.queries[0]
+    src = sparse.truncate(SparseEmbedding(*(t[None] for t in tw.interested_in(q.user_id))), TM_SHAPE.sann.N)
+    safe = torch.where(src.valid_mask(), src.ids, 0).reshape(-1).contiguous()  # [N] = 50 cluster rows
+    index = tw.sann.index
+    tables = (index.tweet_ids, index.scores, index.timestamps)
+    time_gather(safe, tables, f"a Home SANN query's cluster rows, {safe.numel()} rows x 3 tables "
+                              f"[{index.tweet_ids.shape[0]}, {index.tweet_ids.shape[1]}]")
+    rows = tuple(r.reshape(1, *src.ids.shape[1:], -1) for r in gather.row_gather(safe, *tables))
+    entries = retrieval.sort_by_id(*retrieval.scan_entries(*rows, src))
+    time_collapse(entries, "a Home SANN query's sorted entries", copy_yardstick=False)
+    uid = torch.tensor([q.user_id], dtype=torch.int32, device=index.scores.device)
+    time_gather(uid, (tw.twhin.item_table,), f"a TwHIN item row, 1 row x [{TM_SHAPE.num_items}, "
+                                              f"{TM_SHAPE.embed_dim}] f32 (512 B)")
+    time_gather(uid, (tw.twhin.user_table,), f"a TwHIN user row, 1 row x [{TM_SHAPE.num_users}, "
+                                              f"{TM_SHAPE.embed_dim}] f32 (512 B)")
+    time_home_graph_kernels(tw, q)
 
 
 def main() -> int:
@@ -2104,10 +2485,11 @@ def main() -> int:
     phase_gather_sweep(dev)
     phase_collapse_sweep(dev)
     phase_ranking(dev)
-    by_path["training"] = phase_training_apart()
+    by_path["training"] = phase_apart("--training", "training")
     by_path["exact_tier"], tier_scans = phase_exact_tier(world, (sann_ids, sann_scores), sann_recall, fy)
     by_path["live"], live_times = phase_live_updates(dev, world, fy)
     phase_new_path_times(tier_scans, live_times)
+    by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
@@ -2128,4 +2510,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(training_main() if sys.argv[1:] == ["--training"] else main())
+    CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone}
+    sys.exit(child_main(CHILD_PHASES[sys.argv[1]]) if sys.argv[1:] and sys.argv[1] in CHILD_PHASES else main())

@@ -348,3 +348,69 @@ def test_hashed_lr_gradient_through_the_kernels(cuda_device):
     want = torch.zeros(N, 1, device=cuda_device).index_put_((idx.reshape(-1).long(),), (vals * dl).reshape(-1, 1),
                                                             accumulate=True)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+def test_kernels_at_the_tweet_mixer_per_query_shapes(cuda_device):
+    """One Home request's kernel shapes: a SANN query's sorted entries
+    ([1, 20,000], two sums), its cluster-row fetch (50 rows x 3 tables of
+    1,600 B) and the dense lookups' 512-byte rows (TwHIN / two-tower, one
+    row and 16 rows) against the plain versions: the same (row, id) slots
+    with sums at rtol 1e-5 / atol 1e-6, rows bit-exact."""
+    rng = np.random.default_rng(8)
+    ids = np.sort(rng.integers(0, 9000, (1, 20_000)).astype(np.int32), axis=1)
+    ids[0, -700:] = PAD_ID
+    vals = [torch.from_numpy(rng.uniform(0, 1, ids.shape).astype(np.float32)).to(cuda_device) for _ in range(2)]
+    entries = (torch.from_numpy(ids).to(cuda_device), *vals)
+    got, want = seg_scan.run_collapse_sorted(*entries), seg_scan.run_collapse_sorted_plain(*entries)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+    C, M = 5000, 400
+    tables = (torch.from_numpy(rng.integers(0, 1 << 21, (C, M)).astype(np.int32)).to(cuda_device),
+              torch.from_numpy(rng.random((C, M)).astype(np.float32)).to(cuda_device),
+              torch.zeros((C, M), dtype=torch.int32, device=cuda_device))
+    dense = torch.from_numpy(rng.normal(size=(100_000, 128)).astype(np.float32)).to(cuda_device)
+    for rows, tabs in ((rng.integers(0, C, 50), tables), (rng.integers(0, 100_000, 1), (dense,)),
+                       (rng.integers(0, 100_000, 16), (dense,))):
+        r = torch.from_numpy(rows.astype(np.int32)).to(cuda_device)
+        for g, w in zip(gather.row_gather(r, *tabs), gather.row_gather_plain(r, *tabs)):
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+
+
+def test_home_product_on_the_card_matches_the_cpu(cuda_device):
+    """tweet-mixer's Home product on a small world: each of the 20
+    pipelines' lists on the card against the same world moved to the CPU
+    (score-aligned sets, rtol 1e-5, atol 1e-5: float32 sums in another
+    order), non-empty, and one request's launches equal to the count from
+    the routed pipelines."""
+    from the_algorithm_tpu_torch.data import tweet_mixer_world as tmw
+    from the_algorithm_tpu_torch.mixers import candidate_pipeline_catalog as cat
+    from the_algorithm_tpu_torch.mixers import tweet_mixer_products as tmp
+
+    shape = tmw.TweetMixerShape(
+        sann=sann_world.WorldShape(n_comm=8, cpc=64, M=40, N=10, X=50, T=8192, KT=8, Q=32),
+        foryou=foryou_world.ForYouShape(num_users=512, num_authors=128, eb_docs=4096, tweet_space=4096, follows=12,
+                                        follow_width=16, utg_width=32, utg_sources=16),
+        embed_dim=128, users=4)
+    card = tmw.build(shape, device=cuda_device)
+    home = tmp.TweetMixerProduct.HOME_RECOMMENDED_TWEETS
+    lists = {}
+    for w in (card, card.to("cpu")):
+        catalog = cat.build_catalog(w.source_world())
+        for q in w.queries:
+            for pipe in tmp.product_pipelines(catalog, home, q, tmp.Params()):
+                lists.setdefault((q.user_id, pipe.name), []).append(pipe.source.get(q, tmp.Params()))
+    assert len(lists) == 20 * shape.users
+    for got, want in lists.values():
+        assert want and len(got) == len(want)
+        assert_same_topk(np.array([[c.id for c in got]]), np.array([[c.score for c in got]], np.float32),
+                         np.array([[c.id for c in want]]), np.array([[c.score for c in want]], np.float32),
+                         rtol=1e-5, atol=1e-5)
+    catalog = cat.build_catalog(card.source_world())
+    q = card.queries[0]
+    names = [s.name for s, p in catalog if p in tmp.product_pipelines(catalog, home, q, tmp.Params())]
+    g0, s0 = gather.row_gather.launches, seg_scan.run_collapse_sorted.launches
+    assert tmp.run_product(catalog, home, q)
+    assert {"row_gather": gather.row_gather.launches - g0,
+            "run_collapse": seg_scan.run_collapse_sorted.launches - s0} == tmw.expected_launches(names, q)

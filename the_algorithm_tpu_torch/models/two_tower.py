@@ -1,0 +1,172 @@
+"""TwHIN-style two-tower embeddings: the dense user/item retrieval model.
+
+Counterpart of ``the_algorithm_tpu/models/two_tower.py`` (serving half): the
+user and item towers over id-embedding tables and the exact dense top-K
+(``tweet-mixer/.../twhin_ann/TwHINANNCandidateSource.scala``, the
+VecDB/HNSW capability served as a brute-force product). The tables are read
+through :func:`~the_algorithm_tpu_torch.ops.gather.row_gather`, each id
+mapped first to the row JAX's gather reads (:func:`~the_algorithm_tpu_torch.
+ops.gather.jax_rows`: a negative id wraps, an id past the end clamps). Those
+reads carry no gradient, so the tables are built frozen (``requires_grad``
+off) and a read of a table that asks for a gradient raises: the in-batch
+softmax training waits for the port's D-wide table gradient. A backward
+through the model reaches the towers only.
+
+:func:`params_from_flax` turns the JAX package's flax params into this
+module's ``state_dict``; :func:`params_to_flax` is its inverse.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from the_algorithm_tpu_torch.core.device import resolve
+from the_algorithm_tpu_torch.models.masknet import _lecun_normal_
+from the_algorithm_tpu_torch.ops import retrieval
+from the_algorithm_tpu_torch.ops.gather import jax_rows, row_gather
+
+TABLE_STD = 0.02  # flax nn.initializers.normal(0.02)
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoTowerConfig:
+    num_users: int
+    num_items: int
+    embed_dim: int = 128
+    tower_hidden: Tuple[int, ...] = (128,)
+    temperature: float = 0.05
+    dtype: str = "float32"
+    # the JAX package's all-to-all row exchange (a mesh); not on one device
+    explicit_lookup: bool = False
+
+
+def table_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` as JAX's gather reads it, through ``row_gather``: ids of
+    any shape → ``ids.shape + (D,)``. The read carries no gradient, so a
+    table that asks for one while autograd records raises rather than stay
+    untrained."""
+    if table.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("a gradient through an embedding table read: the port has no table gradient "
+                                  "yet; freeze the table (requires_grad_(False)) or read it under torch.no_grad()")
+    ids = torch.as_tensor(ids, device=table.device)
+    return row_gather(jax_rows(ids, table.shape[0]).to(torch.int32), table)[0]
+
+
+def init_table(rows: int, dim: int, device, generator: Optional[torch.Generator]) -> nn.Parameter:
+    """A [rows, dim] f32 table drawn as flax's ``normal(0.02)`` draws it,
+    frozen: :func:`table_rows` gives it no gradient."""
+    t = torch.empty(rows, dim, device=device)
+    t.normal_(0.0, TABLE_STD, generator=generator)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Tower(nn.Module):
+    """ReLU MLP, then ``x · rsqrt(Σx² + 1e-12)`` (not ``F.normalize``): the
+    JAX tower's normalisation, whose gradient stays finite at a zero row."""
+
+    def __init__(self, in_dim: int, hidden: Tuple[int, ...], out_dim: int, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        widths = (in_dim,) + tuple(hidden)
+        self.dense = nn.ModuleList(nn.Linear(widths[i], widths[i + 1], device=device) for i in range(len(hidden)))
+        self.out = nn.Linear(widths[-1], out_dim, device=device)
+        for lin in [*self.dense, self.out]:  # flax defaults: lecun-normal kernels, zero biases
+            _lecun_normal_(lin.weight, lin.in_features, generator)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lin in self.dense:
+            x = F.relu(lin(x))
+        x = self.out(x)
+        return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
+
+
+class TwoTower(nn.Module):
+    """User and item towers over id-embedding tables. Built on the card
+    unless ``device`` names another."""
+
+    def __init__(self, config: TwoTowerConfig, *, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if config.explicit_lookup:
+            raise NotImplementedError("explicit_lookup needs a device mesh; the port runs on one device")
+        dev = resolve(device, "TwoTower")
+        self.config = cfg = config
+        self.user_table = init_table(cfg.num_users, cfg.embed_dim, dev, generator)
+        self.item_table = init_table(cfg.num_items, cfg.embed_dim, dev, generator)
+        self.user_tower = Tower(cfg.embed_dim, cfg.tower_hidden, cfg.embed_dim, device=dev, generator=generator)
+        self.item_tower = Tower(cfg.embed_dim, cfg.tower_hidden, cfg.embed_dim, device=dev, generator=generator)
+
+    def forward(self, user_ids: torch.Tensor, item_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(user embeddings, item embeddings), each ``ids.shape + (D,)``."""
+        return self.user_embeddings(user_ids), self.item_embeddings(item_ids)
+
+    def user_embeddings(self, user_ids: torch.Tensor) -> torch.Tensor:
+        return self.user_tower(table_rows(self.user_table, user_ids))
+
+    def item_embeddings(self, item_ids: torch.Tensor) -> torch.Tensor:
+        return self.item_tower(table_rows(self.item_table, item_ids))
+
+
+def retrieve_top_k(query: torch.Tensor, items: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact brute-force cosine top-K: query [Q, D] against items [N, D] →
+    (row ids [Q, k] int32, scores [Q, k] f32), in ``lax.top_k``'s order.
+    The product is f32 (TF32 off on the card); like ``lax.top_k``, a k
+    larger than N raises."""
+    if k > items.shape[0]:
+        raise ValueError(f"top_k of k={k} over {items.shape[0]} items")
+    scores = torch.matmul(query.float(), items.float().T)
+    top_scores, top_ids = retrieval.top_k(scores, k)
+    return top_ids.to(torch.int32), top_scores
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _tower_from_flax(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    sd, j = {}, 0
+    while f"dense_{j}" in p:
+        sd[f"{prefix}.dense.{j}.weight"] = _t(p[f"dense_{j}"]["kernel"]).T.contiguous()
+        sd[f"{prefix}.dense.{j}.bias"] = _t(p[f"dense_{j}"]["bias"])
+        j += 1
+    sd[f"{prefix}.out.weight"] = _t(p["out"]["kernel"]).T.contiguous()
+    sd[f"{prefix}.out.bias"] = _t(p["out"]["bias"])
+    return sd
+
+
+def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax params ``params/{user_table, item_table,
+    user_tower/{dense_i, out}, item_tower/{dense_i, out}}`` (with or without
+    the top-level ``"params"`` key) → this module's ``state_dict``. A flax
+    ``Dense`` kernel is [in, out]; a torch ``Linear`` weight is [out, in]."""
+    p = tree.get("params", tree)
+    sd = {"user_table": _t(p["user_table"]), "item_table": _t(p["item_table"])}
+    sd.update(_tower_from_flax(p["user_tower"], "user_tower"))
+    sd.update(_tower_from_flax(p["item_tower"], "item_tower"))
+    return sd
+
+
+def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The inverse of :func:`params_from_flax`: ``{"params": {...}}`` of f32
+    numpy arrays, kernels back to [in, out]."""
+
+    def a(name: str, transpose: bool = False) -> np.ndarray:
+        x = state_dict[name].detach().to("cpu", torch.float32)
+        return (x.T if transpose else x).contiguous().numpy()
+
+    def tower(prefix: str) -> Dict:
+        out, j = {}, 0
+        while f"{prefix}.dense.{j}.weight" in state_dict:
+            out[f"dense_{j}"] = {"kernel": a(f"{prefix}.dense.{j}.weight", True), "bias": a(f"{prefix}.dense.{j}.bias")}
+            j += 1
+        out["out"] = {"kernel": a(f"{prefix}.out.weight", True), "bias": a(f"{prefix}.out.bias")}
+        return out
+
+    return {"params": {"user_table": a("user_table"), "item_table": a("item_table"),
+                       "user_tower": tower("user_tower"), "item_tower": tower("item_tower")}}
