@@ -88,7 +88,8 @@ Phases, each printing its result on its own line:
 10. live: bench.py's live updates (bench.py:696-798) into the step-5
    engine's tables: the updater's unthrottled ceiling, 4 R=32 batches served
    while a feeder applies 256-event batches at 6,000 events/s, the probe's
-   top candidate's score moving in the next request (counted), one seeded
+   top candidate's score moving in the next request (counted; the probe
+   served with creation times below 1,000 s, where scores spread), one seeded
    batch folded on the card against the CPU; then an updater carrying a
    [131,072, 400] tweet-embedding state (user interests: the step-3 query
    embeddings) over the same batches, its refreshed [145,408, 1,600] index
@@ -117,11 +118,29 @@ Phases, each printing its result on its own line:
     (SANN: run_collapse [1, 20,000] k=2, row_gather 50 x 3 x 1,600 B;
     single 512-byte TwHIN rows; the UTEG family's seed rows and dedup at
     R=1, one per seed count; UTG's two hops and dedup at B=1), with no
-    copy_ yardstick.
+    copy_ yardstick;
+13. embedding_training, in a child process after the others
+    (``chip_smoke.py --embedding-training`` runs it alone): the copy_
+    yardstick at step 12's collapse shapes; small-width f32 two-tower and
+    TwHIN models through the ``Trainer`` on the card against the CPU (first
+    gradients, params after 3 steps); both models at tweet-mixer's widths
+    (16,384 users x 2,000,000 items x 128 f32 tables) trained on
+    ``data/tweet_mixer_world.py``'s planted engagements with B=4,096
+    in-batch negatives and adam: one counted step each (a row_gather launch
+    a table read, a D-wide ``run_collapse_rows`` launch a table gradient;
+    required exactly), steps on CUDA events, the step's device time by part,
+    hits@100 of the planted item over all 2M items for 1,024 users (at least
+    0.5; TwHIN per relation); the D-wide collapse on each table gradient's
+    own inputs against its plain version, bit-equal run to run and against
+    ``index_put_(accumulate=True)``, with times; RealGraph's edge model
+    (fit, ``top_edges``) and a WALS fit (``consumer_embedding``,
+    ``similar_items``), each card against CPU; then the trained tables
+    served through the Home dense engines of a world built as step 12's,
+    the planted items in a served user's dense top-200s.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
-updates), error and times, and, as the last line,
+updates, embedding training), error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
 """
@@ -160,7 +179,8 @@ from the_algorithm_tpu_torch.mixers import tweet_mixer_products as tmp
 from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
 from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
 from the_algorithm_tpu_torch.mixers.home_products import EXACT_RETRIEVAL_TIER
-from the_algorithm_tpu_torch.models import masknet
+from the_algorithm_tpu_torch.graph import realgraph
+from the_algorithm_tpu_torch.models import masknet, twhin, two_tower, wals
 from the_algorithm_tpu_torch.ops import gather, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
@@ -1206,7 +1226,9 @@ def phase_foryou(dev, sann, cand):
           f"{dev_ms:.2f} ms of the {batch_ms:.1f} ms batch on the host clock: busy {100 * dev_ms / batch_ms:.0f}%")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=16))
     torch.cuda.empty_cache()
-    return launches, dict(served=served, sources=sources, lift=lift, queries=queries)
+    # the live phase's freshness probe: the serving engine with small creation times
+    probe = engine(served.scorer, lift=spread_lift(lift), max_age_s=10 ** 9)
+    return launches, dict(served=served, sources=sources, lift=lift, queries=queries, probe=probe)
 
 
 # the exact retrieval tier as bench.py serves it (bench.py:616-694): the turbo
@@ -1228,6 +1250,14 @@ LIVE_EPS = 6000.0  # the feeder's rate: the reference's ingest point
 LIVE_CEILING = 8  # batches of the unthrottled ceiling
 LIVE_R, LIVE_SERVE = 32, 4  # R=32 batches served while the feeder runs
 LIVE_TARGET_FAVS = 8  # events a batch on the probe's top candidate
+# bench.py's freshness criterion (bench.py:781-788): after the fav bursts the
+# probe's top candidate scores more than this away from before, or leaves the
+# top-50. The probe is served with creation times below SPREAD_TS: at
+# bench.py's ~1e7-second times a request's scores sit within ulps of each
+# other (4.70161e-07 -> 4.70151e-07 in a failed run), where a burst moves the
+# target's score by less than this and the check passed only when the target
+# left the top-50
+FRESH_BOUND = 1e-9
 FOLD_RTOL = 1e-6  # folded aggregates, card against CPU: exp2 decays and f32 sums in another order
 # the tweet-embedding state the updater folds (simclusters/tweet_embeddings.py prod defaults)
 EMB_T = 1 << 17
@@ -1407,6 +1437,14 @@ def bench_events(rng, clock, target, target_author, num_users, num_authors):
          str(kinds[i]), clock) for i in range(LIVE_E)])
 
 
+def freshness_moved(target, after):
+    """bench.py's freshness criterion for the probe's top candidate
+    ``target`` and the next request's list ``after``: (moved, its score in
+    ``after`` or None when it left the list)."""
+    after_s = {c.id: c.score for c in after}.get(target.id)
+    return after_s is None or abs(after_s - target.score) > FRESH_BOUND, after_s
+
+
 def stub_scorer(tables, resolvers):
     """What LiveUpdater needs of a scorer: its tables and the resolvers."""
     return SimpleNamespace(tables=tables, builder=SimpleNamespace(resolvers=resolvers))
@@ -1452,14 +1490,14 @@ def phase_live_updates(dev, world, fy):
     the freshness request and that query, and the work whose device time
     phase_new_path_times takes."""
     shape, _, _, _, q_ids, q_scores, _, _ = world
-    served, make = fy["served"], fy["queries"]
+    served, make, probe_engine = fy["served"], fy["queries"], fy["probe"]
     scorer = served.scorer
     num_users, num_authors = FY_WORLD["num_users"], FY_WORLD["num_authors"]
     now = foryou_world.NOW
     updater = lu.LiveUpdater(scorer)
     rng = np.random.default_rng(23)
     probe = make(1, base=900)[0]
-    target = served.serve_batch([probe])[0][0]  # the probe's top candidate
+    target = probe_engine.serve_batch([probe])[0][0]  # the probe's top candidate
     target_author = int(target.features.get("author_id", 0) or 0)
     clock = [now]
 
@@ -1509,16 +1547,17 @@ def phase_live_updates(dev, world, fy):
     # freshness: the next request after the fav bursts, counted
     seg_scan.run_collapse_sorted.launches = 0
     gather.row_gather.launches = 0
-    after = served.serve_batch([probe])[0]
+    after = probe_engine.serve_batch([probe])[0]
     torch.cuda.synchronize()
     launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
     require(launches == FY_LAUNCHES, f"launches of the request after the updates {launches}, want {FY_LAUNCHES}")
-    after_s = {c.id: c.score for c in after}.get(target.id)
-    require(after_s is None or abs(after_s - target.score) > 1e-9,
-            f"the fav bursts did not move tweet {target.id}'s score ({target.score} -> {after_s})")
-    print(f"live: freshness: tweet {target.id}, the probe's top candidate, scored {target.score:.6g} before the "
-          f"updates and {'%.6g' % after_s if after_s is not None else 'out of the top-50'} in the next request "
-          f"(launches {launches})")
+    moved, after_s = freshness_moved(target, after)
+    require(moved, f"the fav bursts did not move tweet {target.id}'s score ({target.score} -> {after_s})")
+    print(f"live: freshness (creation times below {SPREAD_TS} s): tweet {target.id}, the probe's top candidate, "
+          f"scored {target.score:.9g} before the updates and "
+          f"{'%.9g' % after_s if after_s is not None else 'out of the top-50'} in the next request"
+          + (f", moved by {abs(after_s - target.score):.6g} (bound {FRESH_BOUND:g})" if after_s is not None else "")
+          + f" (launches {launches})")
 
     # one seeded batch folded on the card and on the CPU
     t0 = time.perf_counter()
@@ -2106,8 +2145,9 @@ def phase_training(dev):
 
 
 def child_main(phase) -> int:
-    """``chip_smoke.py --training`` or ``--tweet-mixer``: that phase alone,
-    on the card, its launches as the last line of output."""
+    """``chip_smoke.py --training``, ``--tweet-mixer`` or
+    ``--embedding-training``: that phase alone, on the card, its launches
+    (and the embedding phase's kernel numbers) as the last line of output."""
     require(torch.cuda.is_available(), "no CUDA device: this script runs on an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2471,6 +2511,418 @@ def phase_tweet_mixer_times(tw):
     time_home_graph_kernels(tw, q)
 
 
+
+# embedding-table training (two-tower and TwHIN) at tweet-mixer's widths:
+# 16,384 users x 2,000,000 items x D=128 f32 tables, the planted engagements
+# of data/tweet_mixer_world.py, B=4,096 in-batch negatives, the Trainer's adam
+EMB_B = tweet_mixer_world.TRAIN_B  # 4,096 in-batch negatives (the world's choice; the JAX tests use 16-64)
+EMB_LR = 1e-2  # adam's learning rate (TrainerConfig)
+EMB_STEPS = 300  # steps of each model's fit
+EMB_TIMED = 20  # loop-carried steps timed with CUDA events
+EMB_EVAL_USERS = 1024  # users whose planted item's rank is read
+EMB_K = 100
+EMB_HITS = 0.5  # hits@100 over all 2M items each model must reach (untrained ~5e-5)
+EMB_SERVED_K = 200  # a dense engine's list: the planted item must be in it
+# the table gradient against index_put_(accumulate=True): f32 sums in another
+# order (atomics), so within this share of each entry or of the largest
+EMB_LIB_RTOL = 1e-6
+# the card against the CPU: a small-width f32 model (TF32 off), GRAD_STEPS
+# Trainer steps from the same weights, at the training phase's tolerances
+EMB_SMALL = dict(users=64, items=500, dim=32, hidden=(32,), batch=48)
+# launches of one counted step: a row_gather a table read, a D-wide collapse a table gradient
+EMB_LAUNCHES = {"two_tower": {"row_gather": 2, "run_collapse_rows": 2, "run_collapse": 0},
+                "twhin": {"row_gather": 3, "run_collapse_rows": 3, "run_collapse": 0}}
+RG_USERS, RG_DEGREE, RG_EVENTS, RG_BATCH = 16_384, 32, 65_536, 256  # RealGraph: bench.py's 65,536 events
+WALS_SHAPE = dict(users=1024, items=2048, dim=32, iterations=5, history=64)
+
+
+def embedding_models(dev, shape=None, seed=13):
+    """Trainable two-tower and TwHIN models at the world's widths."""
+    s = shape or TM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tt = two_tower.TwoTower(two_tower.TwoTowerConfig(s.num_users, s.num_items, s.embed_dim, s.tower_hidden),
+                            device=dev, generator=gen)
+    th = twhin.Twhin(twhin.TwhinConfig(s.num_users, s.num_items, s.embed_dim), device=dev, generator=gen)
+    return tt, th
+
+
+def collapse_inputs(trainer, batch):
+    """The (sorted ids, permutation, dy, table rows) each table gradient of
+    one step hands the D-wide collapse, by table, in backward order."""
+    seen, inner = [], gather.run_collapse_rows
+
+    def recording(ids, perm, dy, num_rows):
+        seen.append((ids.clone(), perm.clone(), dy.clone(), num_rows))
+        return inner(ids, perm, dy, num_rows)
+
+    gather.run_collapse_rows = recording
+    try:
+        trainer.train_step(batch)
+    finally:
+        gather.run_collapse_rows = inner
+    torch.cuda.synchronize()
+    return seen
+
+
+def time_collapse_rows(ids, perm, dy, num_rows, label):
+    """The D-wide collapse on one of the path's inputs: bit-equal run to
+    run, against its plain version (SUM_RTOL / SUM_ATOL) and against
+    index_put_(accumulate=True) (EMB_LIB_RTOL); each side's time on CUDA
+    events (the zero-filled dense output included) and in device time, the
+    kernel's alone too."""
+    got = seg_scan.run_collapse_rows(ids, perm, dy, num_rows)
+    again = seg_scan.run_collapse_rows(ids, perm, dy, num_rows)
+    plain = seg_scan.run_collapse_rows_plain(ids, perm, dy, num_rows)
+    rows = torch.where(ids == PAD_ID, num_rows, ids).long()
+    rows_unsorted = torch.empty_like(rows).scatter_(0, perm, rows)  # the table read's own order
+
+    def library():
+        return torch.zeros((num_rows + 1, dy.shape[1]), device=dy.device).index_put_(
+            (rows_unsorted,), dy, accumulate=True)[:num_rows]
+
+    lib = library()
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), f"run_collapse_rows not bit-equal run to run at {label}")
+    require(torch.allclose(got, plain, rtol=SUM_RTOL, atol=SUM_ATOL), f"run_collapse_rows off its plain version at {label}")
+    scale = float(lib.abs().max())
+    lib_err = float((got - lib).abs().max())
+    require(bool(((got - lib).abs() <= EMB_LIB_RTOL * (lib.abs() + scale)).all()),
+            f"run_collapse_rows off index_put_(accumulate=True) at {label} (max |diff| {lib_err:.3g})")
+    err = float((got - plain).abs().max())
+    n, D = dy.shape
+    distinct = int(torch.unique(ids[ids != PAD_ID]).numel())
+    kernel = lambda: seg_scan.run_collapse_rows(ids, perm, dy, num_rows)  # noqa: E731
+    plain_fn = lambda: seg_scan.run_collapse_rows_plain(ids, perm, dy, num_rows)  # noqa: E731
+    ms, plain_ms = timed_pair(kernel, plain_fn)
+    lib_ms = cuda_ms(library, 50)
+    dev_ms, plain_dev_ms, lib_dev_ms = device_ms(kernel, 50), device_ms(plain_fn, 50), device_ms(library, 50)
+    own = per_call_ms([e for e in session_kernels([kernel] * 50) if "run_collapse_rows" in e.key], 50)
+    # the function's bytes: ids and permutation and each dy row read once, the dense
+    # [N, D] gradient written once; the kernel's alone: the touched rows written once
+    moved = n * (4 + 8 + 4 * D) + num_rows * D * 4
+    own_moved = n * (4 + 8 + 4 * D) + distinct * D * 4
+    bound, own_bound = bound_ms(moved), bound_ms(own_moved)
+    print(f"kernel run_collapse_rows: {label}: {n} slots, {distinct} runs into [{num_rows}, {D}]; bit-equal run to "
+          f"run; max |err| {err:.3g} vs plain (rtol {SUM_RTOL}, atol {SUM_ATOL}), {lib_err:.3g} vs "
+          f"index_put_(accumulate=True); device {dev_ms:.4f} ms with the zero fill ({100 * bound / dev_ms:.1f}% of its "
+          f"{bound:.4f} ms bound), the kernel alone {'not measured' if own is None else f'{own:.4f} ms'} (its "
+          f"{own_bound:.4f} ms bound, touched rows), plain {plain_dev_ms:.4f} ms, index_put_ {lib_dev_ms:.4f} ms; "
+          f"events {ms:.4f} / {plain_ms:.4f} / {lib_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                kernel_device_ms=own, bound_ms=bound, bound_by="bytes", kernel_bound_ms=own_bound,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms)
+
+
+def embedding_step_breakdown(model, loss_fn, opt, batch, reps=2):
+    """One profiler session of ``reps`` steps: device time by part (the
+    forward, the backward without the table gradients, the table gradients'
+    collapse kernels, the dense gradients' zero fills, the update)."""
+    def step():
+        opt.zero_grad(set_to_none=True)
+        with torch.profiler.record_function("forward"):
+            loss, _ = loss_fn(model, batch)
+        loss.backward()
+        with torch.profiler.record_function("update"):
+            opt.step()
+
+    for _ in range(2):
+        step()
+    PROFILER["sessions"] += 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    parts, kernels = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        backward = any(n.startswith("autograd::engine") for n in chain)
+        for k in e.kernels:
+            if "run_collapse_rows" in k.name:
+                part = "table gradient (collapse)"
+            elif backward and ("fill" in k.name.lower() or k.name.startswith("Memset")):
+                part = "table gradient (zero fill)"
+            elif backward:
+                part = "backward"
+            elif "update" in chain:
+                part = "update"
+            else:
+                part = "forward"
+            parts[part] += k.duration / 1000 / reps
+            kernels[k.name[:60]] += k.duration / 1000 / reps
+    return parts, kernels.most_common(5)
+
+
+def train_full_width(dev, name, model, loss_fn, batches, hits_fn):
+    """One model's fit at full width through the Trainer: the counted step,
+    steps on CUDA events, the device-time breakdown, hits@100 before and
+    after. Returns the counted launches, the collapse's inputs of one step,
+    and the trained model."""
+    tr = Trainer(loss_fn, model, TrainerConfig(learning_rate=EMB_LR), device=dev)
+    untrained = hits_fn(model)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = put_batch(next(batches), dev)
+    seg_scan.run_collapse_sorted.launches = 0
+    seg_scan.run_collapse_rows.launches = 0
+    gather.row_gather.launches = 0
+    loss0 = float(tr.train_step(first)["loss"])
+    torch.cuda.synchronize()
+    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches,
+                "run_collapse_rows": seg_scan.run_collapse_rows.launches}
+    require(launches == EMB_LAUNCHES[name], f"{name} step launches {launches}, want {EMB_LAUNCHES[name]}")
+    inputs = collapse_inputs(tr, put_batch(next(batches), dev))
+    timed = [put_batch(next(batches), dev) for _ in range(EMB_TIMED)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in timed:
+        tr.train_step(b)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / EMB_TIMED
+    t0 = time.perf_counter()
+    while tr.step < EMB_STEPS:
+        out = tr.train_step(next(batches))
+    loss = float(out["loss"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    parts, top = embedding_step_breakdown(model, loss_fn, tr.optimizer, timed[0])
+    trained = hits_fn(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    require(np.isfinite(loss) and loss < loss0, f"{name}: the loss did not fall ({loss0} -> {loss})")
+    print(f"embedding_training: {name} ({n_params / 1e6:.1f}M f32 params, B={EMB_B}, adam {EMB_LR}): one step "
+          f"{step_ms:.3f} ms over {EMB_TIMED} loop-carried steps (CUDA events, not a benchmark); {EMB_STEPS} steps, "
+          f"loss {loss0:.4f} -> {loss:.4f} ({fit_s:.1f} s on the host clock for the last {EMB_STEPS - 2 - EMB_TIMED}); "
+          f"peak memory {peak / 2**30:.2f} GiB; launches a step {launches}")
+    print(f"embedding_training: {name} step device time by part (one profiler session): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.most_common()) + f"; total {sum(parts.values()):.3f} ms; "
+          f"the dense Adam's bound {bound_ms(7 * 4 * n_params):.3f} ms (p, g, m, v read, p, m, v written); longest "
+          "kernels " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    print(f"embedding_training: {name} hits@{EMB_K} of the planted item over all {TM_SHAPE.num_items} items, "
+          f"{EMB_EVAL_USERS} users: untrained {untrained}, trained {trained} (at least {EMB_HITS} required)")
+    require(all(h >= EMB_HITS for h in np.atleast_1d(trained)), f"{name}: hits@{EMB_K} {trained} below {EMB_HITS}")
+    model.zero_grad(set_to_none=True)
+    return launches, inputs, model
+
+
+def embedding_card_against_cpu(dev):
+    """Small-width f32 two-tower and TwHIN models on the card and on the
+    CPU through the Trainer from the same weights and batches: the first
+    step's gradients per parameter, the params after GRAD_STEPS steps."""
+    s = EMB_SMALL
+    shape = SimpleNamespace(num_users=s["users"], num_items=s["items"], embed_dim=s["dim"], tower_hidden=s["hidden"])
+    rng = np.random.default_rng(3)
+    batches = [{"users": rng.integers(-2, s["users"] + 2, s["batch"]).astype(np.int32),
+                "relations": rng.integers(0, len(twhin.RELATIONS), s["batch"]).astype(np.int32),
+                "items": rng.integers(-2, s["items"] + 2, s["batch"]).astype(np.int32)} for _ in range(GRAD_STEPS)]
+    report = []
+    for idx, (name, loss_fn) in enumerate((("two_tower", tweet_mixer_world.two_tower_train_loss),
+                                           ("twhin", tweet_mixer_world.twhin_train_loss))):
+        ref = embedding_models(dev, shape, seed=5)[idx].state_dict()
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            model = embedding_models(where, shape, seed=5)[idx]
+            model.load_state_dict(ref)
+            tr = Trainer(loss_fn, model, TrainerConfig(learning_rate=EMB_LR), device=where)
+            grads = None
+            for b in batches:
+                tr.train_step(b)
+                if grads is None:
+                    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+            runs.append((grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+        (g_card, p_card), (g_cpu, p_cpu) = runs
+        worst = max(float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max().clamp(min=1e-30)) for k in g_cpu)
+        require(worst <= GRAD_SCALE_TOL, f"{name}: card gradients off the CPU's by {worst:.3g} of a parameter's largest")
+        diffs = torch.cat([(p_card[k] - p_cpu[k]).abs().reshape(-1) for k in p_cpu])
+        max_diff, outliers = float(diffs.max()), float((diffs > PARAM_ATOL).double().mean())
+        require(max_diff <= 2 * GRAD_STEPS * EMB_LR and outliers <= PARAM_OUTLIERS,
+                f"{name}: params after {GRAD_STEPS} steps: card vs CPU max {max_diff:.3g}, {outliers:.3g} beyond "
+                f"{PARAM_ATOL}")
+        report.append(f"{name} gradients within {worst:.3g} of each parameter's largest entry, params after "
+                      f"{GRAD_STEPS} steps max |diff| {max_diff:.3g}, share beyond {PARAM_ATOL:g} {outliers:.3g}")
+    print(f"embedding_training: card against CPU (f32, TF32 off, {s['users']} users x {s['items']} items x "
+          f"{s['dim']}, B={s['batch']}, ids past both ends; limits {GRAD_SCALE_TOL}, 2·steps·lr = "
+          f"{2 * GRAD_STEPS * EMB_LR:g}, {PARAM_OUTLIERS:g}): " + "; ".join(report))
+
+
+def realgraph_card_against_cpu(dev):
+    """RealGraph's edge model on a table folded from RG_EVENTS seeded
+    interactions: 100 adam steps of loss_fn on the card and on the CPU from
+    the same start (the losses alike), then top_edges for RG_BATCH users
+    (one row_gather launch) with the card's params on both."""
+    rng = np.random.default_rng(41)
+    F = len(realgraph.INTERACTION_TYPES)
+    src = rng.integers(0, RG_USERS, RG_EVENTS).astype(np.int32)
+    dst = (rng.zipf(1.5, RG_EVENTS) % RG_USERS).astype(np.int32)
+    it = rng.integers(0, F, RG_EVENTS).astype(np.int32)
+    ts = np.sort(rng.integers(0, 30 * 86400, RG_EVENTS)).astype(np.int32)
+    t0 = time.perf_counter()
+    table = realgraph.apply_interactions(realgraph.init_table(RG_USERS, RG_DEGREE, dev), src, dst, it, ts)
+    fold_s = time.perf_counter() - t0
+    now = 31 * 86400
+    feats = realgraph.edge_features(table, now)
+    x = feats[table.neighbor_ids != PAD_ID][:65_536]
+    y = (x[:, 0] > x[:, 1:].sum(dim=1)).float()  # a fav-dominated edge: the label
+    start = realgraph.init_model(torch.Generator(device=dev).manual_seed(0), device=dev)
+    fits = []
+    for where in (dev, torch.device("cpu")):
+        params = {k: v.detach().clone().to(where).requires_grad_() for k, v in start.items()}
+        opt = optimizers.Adam(list(params.values()), 0.1)
+        xw, yw = x.to(where), y.to(where)
+        for _ in range(100):
+            opt.zero_grad()
+            realgraph.loss_fn(params, xw, yw).backward()
+            opt.step()
+        with torch.no_grad():
+            fits.append((params, float(realgraph.loss_fn(params, xw, yw)),
+                         float(metrics.auc(realgraph.predict_edge_scores(params, xw).cpu(), yw.cpu()))))
+    (params, loss, auc), (_, cpu_loss, _) = fits
+    require(abs(loss - cpu_loss) <= 1e-3 * abs(cpu_loss) and auc > 0.95,
+            f"RealGraph fit: loss {loss} on the card, {cpu_loss} on the CPU; AUC {auc:.4f}")
+    users = torch.from_numpy(rng.integers(0, RG_USERS, RG_BATCH).astype(np.int32))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        tw = realgraph.EdgeTable(*(t.to(where) for t in table))
+        p = {k: v.detach().to(where) for k, v in params.items()}
+        gather.row_gather.launches = 0
+        ids, scores = realgraph.top_edges(tw, p, users.to(where), now, RG_DEGREE // 2)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            require(gather.row_gather.launches == 1, f"top_edges made {gather.row_gather.launches} row_gather launches")
+        runs.append((ids.cpu().numpy(), scores.cpu().numpy()))
+    moved = check_same_ranking(*runs[0], *runs[1], 1e-5, 1e-6, "RealGraph top_edges card vs CPU")
+    print(f"embedding_training: RealGraph ({RG_EVENTS} events folded into [{RG_USERS}, {RG_DEGREE}] edges on the host "
+          f"in {fold_s:.1f} s): 100 adam(0.1) steps of loss_fn on {x.shape[0]} edges, loss {loss:.6f} on the card, "
+          f"{cpu_loss:.6f} on the CPU, AUC {auc:.4f}; top_edges (k={RG_DEGREE // 2}) for {RG_BATCH} users in 1 "
+          f"row_gather launch equal to the CPU's ({moved} ranks hold another id, within near-ties; rtol 1e-5, atol 1e-6)")
+
+
+def wals_card_against_cpu(dev):
+    """A WALS fit on seeded implicit ratings on the card and on the CPU from
+    the same start, then a consumer's solve and similar_items."""
+    s = WALS_SHAPE
+    rng = np.random.default_rng(43)
+    r = ((rng.random((s["users"], s["items"])) < 0.02) * rng.uniform(0.5, 2.0, (s["users"], s["items"])))
+    r = torch.from_numpy(r.astype(np.float32))
+    init = torch.from_numpy((rng.normal(size=(s["items"], s["dim"])) * 0.1).astype(np.float32))
+    cfg = wals.WalsConfig(dim=s["dim"], iterations=s["iterations"])
+    hist = torch.from_numpy(np.flatnonzero(r[7].numpy())[: s["history"]].astype(np.int32))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        m = wals.train_wals(r.to(where), cfg, item_init=init.to(where))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        gather.row_gather.launches = 0
+        vec = wals.consumer_embedding(m.item_factors, hist.to(where), torch.ones(len(hist), device=where), cfg.reg,
+                                      cfg.alpha, wals.item_gram(m.item_factors))
+        ids, scores = wals.similar_items(vec, m.item_factors, EMB_K, exclude=hist.to(where))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            require(gather.row_gather.launches == 1, "consumer_embedding made no row_gather launch")
+        runs.append((m, vec.cpu(), ids.cpu().numpy()[None], scores.cpu().numpy()[None], fit_s))
+    (m_card, v_card, ids, scores, card_s), (m_cpu, v_cpu, want_ids, want_scores, cpu_s) = runs
+    f_err = max(float(((a.cpu() - b).abs() / (b.abs() + 1e-3)).max()) for a, b in zip(m_card, m_cpu))
+    require(all(torch.allclose(a.cpu(), b, rtol=1e-3, atol=1e-4) for a, b in zip(m_card, m_cpu)),
+            f"WALS factors card vs CPU beyond rtol 1e-3, atol 1e-4 ({f_err:.3g})")
+    require(torch.allclose(v_card, v_cpu, rtol=1e-3, atol=1e-4), "WALS consumer vector card vs CPU")
+    moved = check_same_ranking(ids, scores, want_ids, want_scores, 1e-3, 1e-4, "WALS similar_items card vs CPU")
+    print(f"embedding_training: WALS ({s['users']} users x {s['items']} items, d={s['dim']}, {s['iterations']} "
+          f"iterations) card {card_s:.2f} s, CPU {cpu_s:.2f} s (host clock); factors within rtol 1e-3, atol 1e-4; a "
+          f"consumer's solve from {len(hist)} engagements and its similar_items top-{EMB_K} equal to the CPU's "
+          f"({moved} ranks hold another id, within near-ties)")
+
+
+def serve_trained(dev, tt, th, planted):
+    """The trained tables served through tweet-mixer's Home dense engines:
+    a served user's planted items in the dense pipelines' top-200."""
+    t0 = time.perf_counter()
+    tw = tweet_mixer_world.build(TM_SHAPE, device=dev).with_models(th, tt)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = tw.queries[0]
+    u = int(q.user_id)
+    want = {"two_tower_consumer": int(planted.two_tower[u]), "deep_retrieval_user_tweet": int(planted.two_tower[u]),
+            "twhin_consumer_based": int(planted.twhin[tweet_mixer_world.TWHIN_RELATION, u])}
+    catalog = cat.build_catalog(tw.source_world())
+    lists = home_lists(catalog, q)
+    ranks = {}
+    for name, item in want.items():
+        got = [c.id for c in lists[name]]
+        require(len(got) == EMB_SERVED_K, f"{name} served {len(got)} candidates, not {EMB_SERVED_K}")
+        require(item in got, f"user {u}: {name}'s top-{EMB_SERVED_K} over the trained tables misses planted item {item}")
+        ranks[name] = got.index(item)
+    home = tmp.run_product(catalog, HOME, q)
+    in_home = {name: want[name] in {c.id for c in home} for name in want}
+    print(f"embedding_training: the trained tables served through Home's dense engines (world built in {build_s:.1f} "
+          f"s, set-up): user {u}'s planted items at ranks {ranks} of the pipelines' top-{EMB_SERVED_K}; in the "
+          f"blended {len(home)}: {in_home}")
+
+
+# the tweet-mixer Home shapes whose run_collapse rows had no copy_ yardstick
+# (phase_tweet_mixer_times leaves it out: after that phase's launches the
+# profiler drops copy events of short sessions): [Q, W] and k, timed here in a
+# fresh process on entries of the same shapes and types
+HOME_COLLAPSE_SHAPES = [(1, 20_000, 2, "a Home SANN query's sorted entries"),
+                        (1, 512, 2, "Home's UTEG family, 16 seeds"), (1, 1536, 2, "Home's UTEG family, 48 seeds"),
+                        (1, 2048, 2, "Home's UTEG family, 64 seeds"), (1, 4096, 1, "Home's UTG dedup")]
+
+
+def home_copy_yardsticks(dev):
+    """The device time of ``copy_`` moving the bytes of each Home collapse
+    shape (each slot's id and k values, read and written once)."""
+    out = []
+    for Q, W, k, label in HOME_COLLAPSE_SHAPES:
+        entries = [torch.zeros((Q, W), dtype=torch.int32, device=dev)] + [torch.ones((Q, W), device=dev)] * k
+        copies = [torch.empty_like(t) for t in entries]
+        ms = device_ms(lambda: [c.copy_(t) for c, t in zip(copies, entries)], COPY_REPS)
+        out.append(f"{label} [{Q}, {W}] k={k} {ms:.4f} ms")
+    print("kernel run_collapse: copy_ of the same bytes at tweet-mixer's Home shapes (device time): " + "; ".join(out))
+
+
+def phase_embedding_training(dev):
+    """Embedding-table training through the D-wide collapse at full width,
+    its kernel at this path's shapes, the card against the CPU, RealGraph
+    and WALS, and the trained tables served back through Home. Returns the
+    counted steps' launches and the kernel's numbers at the two-tower item
+    table's shape."""
+    home_copy_yardsticks(dev)
+    embedding_card_against_cpu(dev)
+    planted = tweet_mixer_world.planted_engagements(TM_SHAPE)
+    users = np.random.default_rng(5).permutation(TM_SHAPE.num_users)[:EMB_EVAL_USERS]
+    tt, th = embedding_models(dev)
+    tt_launches, tt_inputs, tt = train_full_width(
+        dev, "two_tower", tt, tweet_mixer_world.two_tower_train_loss, tweet_mixer_world.two_tower_batches(planted, EMB_B),
+        lambda m: round(tweet_mixer_world.two_tower_hits(m, planted, users, EMB_K), 4))
+    th_launches, th_inputs, th = train_full_width(
+        dev, "twhin", th, tweet_mixer_world.twhin_train_loss, tweet_mixer_world.twhin_batches(planted, EMB_B),
+        lambda m: [round(h, 4) for h in tweet_mixer_world.twhin_hits(m, planted, users, EMB_K)])
+    launches = {k: tt_launches[k] + th_launches[k] for k in tt_launches}
+    # the kernel at each of this path's shapes: a table by its rows
+    tables = {TM_SHAPE.num_users: "user table", TM_SHAPE.num_items: "item table", len(twhin.RELATIONS): "relation table"}
+    timings = {}
+    for model, inputs in (("two-tower", tt_inputs), ("TwHIN", th_inputs)):
+        for ids, perm, dy, n in inputs:
+            label = f"{model} {tables[n]} ([{n}, {dy.shape[1]}])"
+            timings[label] = time_collapse_rows(ids, perm, dy, n, label)
+    require(len(timings) == 5, f"the collapse's shapes: {list(timings)}, want 5 tables")
+    del tt_inputs, th_inputs
+    realgraph_card_against_cpu(dev)
+    wals_card_against_cpu(dev)
+    torch.cuda.empty_cache()
+    serve_trained(dev, tt, th, planted)
+    return {"launches": launches, "run_collapse_rows": timings[f"two-tower item table ([{TM_SHAPE.num_items}, "
+                                                               f"{TM_SHAPE.embed_dim}])"]}
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -2490,9 +2942,13 @@ def main() -> int:
     by_path["live"], live_times = phase_live_updates(dev, world, fy)
     phase_new_path_times(tier_scans, live_times)
     by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
+    emb = phase_apart("--embedding-training", "embedding_training")
+    by_path["embedding_training"] = emb["launches"]
+    kernels["run_collapse_rows"] = emb["run_collapse_rows"]
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
+        "run_collapse_rows": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:134"),
     }
     print(f"profiler: {PROFILER['sessions']} device-time sessions, {PROFILER['again']} of them opened again after "
           f"one that saw too little; {PROFILER['short']} times taken over kernel events the profiler left out, most "
@@ -2500,8 +2956,8 @@ def main() -> int:
     # launches: the counted batches of every path together; the times are at the SANN shapes
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(n[name] for n in by_path.values()),
-         "launches_by_path": {path: n[name] for path, n in by_path.items()}, **kernels[name]}
+         "launches": sum(n.get(name, 0) for n in by_path.values()),
+         "launches_by_path": {path: n.get(name, 0) for path, n in by_path.items()}, **kernels[name]}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
@@ -2510,5 +2966,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone}
+    CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone,
+                    "--embedding-training": phase_embedding_training}
     sys.exit(child_main(CHILD_PHASES[sys.argv[1]]) if sys.argv[1:] and sys.argv[1] in CHILD_PHASES else main())

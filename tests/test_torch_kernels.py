@@ -414,3 +414,75 @@ def test_home_product_on_the_card_matches_the_cpu(cuda_device):
     assert tmp.run_product(catalog, home, q)
     assert {"row_gather": gather.row_gather.launches - g0,
             "run_collapse": seg_scan.run_collapse_sorted.launches - s0} == tmw.expected_launches(names, q)
+
+
+# (n slots, N table rows, id draw, D, dy offset in floats): a two-tower batch
+# of distinct users and items, TwHIN's 6-row relation table (runs of ~680
+# slots), random repeats, a width off the 16-byte path (D = 13), a width of
+# three 128-column chunks less one vector, and dy 4 bytes off 16-byte alignment
+COLLAPSE_ROWS_CASES = [(4096, 16_384, "distinct", 128, 0), (4096, 2_000_000, "distinct", 128, 0),
+                       (4096, 6, "runs", 128, 0), (100_000, 1000, "random", 128, 0), (37, 50, "random", 13, 0),
+                       (5000, 300, "random", 380, 0), (3000, 100, "random", 128, 1), (1, 1, "random", 4, 0)]
+
+
+@pytest.mark.parametrize("n,N,draw,D,offset", COLLAPSE_ROWS_CASES)
+def test_run_collapse_rows_kernel_matches_plain(cuda_device, n, N, draw, D, offset):
+    """The D-wide collapse against float64 run sums, as is its plain
+    version on the card and on the CPU: each an f32 sum of a run's m terms,
+    within m·2⁻²⁴ of the sum of their magnitudes (the bound of any order of
+    summation); bit-equal run to run; ids past the table and PAD_ID
+    dropped."""
+    rng = np.random.default_rng(n + N + D)
+    ids = (rng.permutation(N)[:n] if draw == "distinct" else rng.integers(0, N, n)).astype(np.int32)
+    ids[rng.random(n) < 0.05] = PAD_ID
+    if n > 3:
+        ids[:3] = [-1, N, N + 5]
+    perm = np.argsort(ids, kind="stable")
+    dy_np = rng.normal(size=(n, D)).astype(np.float32)
+    buf = torch.empty(n * D + offset, device=cuda_device)
+    dy = buf[offset:].view(n, D)
+    dy.copy_(torch.from_numpy(dy_np))
+    args = (torch.from_numpy(ids[perm]).to(cuda_device), torch.from_numpy(perm).to(cuda_device), dy, N)
+    before = seg_scan.run_collapse_rows.launches
+    got = seg_scan.run_collapse_rows(*args)
+    again = seg_scan.run_collapse_rows(*args)
+    torch.cuda.synchronize()
+    assert seg_scan.run_collapse_rows.launches == before + 2
+    assert got.shape == (N, D) and torch.equal(got, again)
+    keep = (ids >= 0) & (ids < N)
+    want = np.zeros((N, D))
+    magnitude = np.zeros((N, D))
+    np.add.at(want, ids[keep], dy_np[keep].astype(np.float64))
+    np.add.at(magnitude, ids[keep], np.abs(dy_np[keep]).astype(np.float64))
+    terms = np.bincount(ids[keep], minlength=N)[:, None]
+    bound = terms * 2.0 ** -24 * magnitude + 1e-30
+    for side in (got.cpu(), seg_scan.run_collapse_rows_plain(*args).cpu(),
+                 seg_scan.run_collapse_rows_plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))):
+        assert (np.abs(side.numpy() - want) <= bound).all()
+
+
+def test_table_read_gradient_on_the_card_matches_the_cpu(cuda_device):
+    """A two-tower step's table gradients through row_gather and the D-wide
+    collapse: one launch of each a table read, the card against the CPU."""
+    from the_algorithm_tpu_torch.models import two_tower
+
+    rng = np.random.default_rng(11)
+    users = rng.integers(-3, 70, 256).astype(np.int32)
+    items = rng.integers(0, 500, 256).astype(np.int32)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = two_tower.TwoTower(two_tower.TwoTowerConfig(64, 500, 128, (128,)), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+        if grads:
+            model.load_state_dict(ref)
+        ref = {k: v.cpu() for k, v in model.state_dict().items()}
+        g0, c0 = gather.row_gather.launches, seg_scan.run_collapse_rows.launches
+        u, v = model(torch.from_numpy(users).to(dev), torch.from_numpy(items).to(dev))
+        two_tower.in_batch_softmax_loss(u, v, 0.05, torch.from_numpy(items).to(dev)).backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (gather.row_gather.launches - g0, seg_scan.run_collapse_rows.launches - c0) == (2, 2)
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    for k in grads[1]:
+        scale = float(grads[1][k].abs().max())
+        np.testing.assert_allclose(grads[0][k].numpy(), grads[1][k].numpy(), rtol=1e-4, atol=1e-5 * scale, err_msg=k)

@@ -162,14 +162,17 @@ def test_twhin_translate_is_the_forwards_user_side():
 
 
 def test_two_tower_backward_reaches_the_towers_and_leaves_the_tables_frozen():
-    """The table reads carry no gradient (training waits for the D-wide
-    table gradient): the tables are built frozen, a backward fills every
-    tower parameter and no table, and an optimizer over ``parameters()``
-    that keeps only what needs a gradient holds no table."""
+    """Tables are trainable by default; a model whose tables are frozen
+    (as a serving copy is) gets a backward that fills every tower parameter
+    and leaves the tables without a gradient, and an optimizer over the
+    parameters that need one holds no table."""
     cfg, _, params = _jax_two_tower()
     port = two_tower.TwoTower(two_tower.TwoTowerConfig(cfg.num_users, cfg.num_items, cfg.embed_dim,
                                                        cfg.tower_hidden), device="cpu")
+    assert all(p.requires_grad for p in port.parameters())
     port.load_state_dict(two_tower.params_from_flax(params))
+    port.user_table.requires_grad_(False)
+    port.item_table.requires_grad_(False)
     u, v = port(torch.from_numpy(USER_IDS), torch.from_numpy(ITEM_IDS))
     (u * v).sum().backward()
     for name, p in port.named_parameters():
@@ -183,16 +186,25 @@ def test_two_tower_backward_reaches_the_towers_and_leaves_the_tables_frozen():
 
 @pytest.mark.parametrize("model", ["two_tower", "twhin"])
 def test_a_table_read_that_asks_for_a_gradient_raises(model):
-    """A table made trainable again raises at its read under autograd
-    rather than train the towers alone; under ``no_grad`` it reads."""
+    """A table read that asks for a gradient no longer raises: it gets
+    ``jax.grad``'s table gradient (ids past the end and far negative ones
+    get none); under ``no_grad`` it reads and records nothing."""
+    ids = [jnp.asarray(USER_IDS), jnp.asarray(ITEM_IDS)]
     if model == "two_tower":
-        port = _port_two_tower(*_jax_two_tower()[::2]).requires_grad_(True)
+        cfg, jmodel, params = _jax_two_tower()
+        port = _port_two_tower(cfg, params).requires_grad_(True)
         run = lambda: port(torch.from_numpy(USER_IDS), torch.from_numpy(ITEM_IDS))  # noqa: E731
     else:
-        port = _twhin_pair()[2].requires_grad_(True)
+        jmodel, params, port = _twhin_pair()
+        port.requires_grad_(True)
         rels = np.zeros(USER_IDS.shape, np.int32)
+        ids.insert(1, jnp.asarray(rels))
         run = lambda: port(torch.from_numpy(USER_IDS), torch.from_numpy(rels), torch.from_numpy(ITEM_IDS))  # noqa: E731
-    with pytest.raises(NotImplementedError, match="table gradient"):
-        run()
+    w = np.random.default_rng(2).normal(size=(2, len(USER_IDS), D)).astype(np.float32)  # the towers' rows are unit
+    want = jax.grad(lambda p: sum(jnp.sum(x * w[i]) for i, x in enumerate(jmodel.apply(p, *ids))))(params)["params"]
+    sum((x * torch.from_numpy(w[i])).sum() for i, x in enumerate(run())).backward()
+    for name in ("user_table", "item_table"):
+        np.testing.assert_allclose(getattr(port, name).grad.numpy(), np.asarray(want[name]), rtol=RTOL, atol=ATOL)
     with torch.no_grad():
-        assert all(torch.isfinite(t).all() for t in run())
+        out = run()
+    assert all(torch.isfinite(t).all() and t.grad_fn is None for t in out)

@@ -499,3 +499,130 @@ extern "C" int run_collapse_sorted(const void* ids, const void* v0, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// The D-wide collapse: an embedding table's gradient.
+//
+// Replaces the same Pallas kernel (the_algorithm_tpu/ops/seg_scan.py:134,
+// _run_collapse_call) at k = D: the TPU kernel takes any number of value
+// arrays, and the gradient of a [N, D] table read at ids [n] is that collapse
+// over the D columns of the read's output gradient. The JAX package reaches it
+// through XLA's scatter-add, the transpose of its gather; here a table read
+// (ops/gather.py:table_read) sorts its ids (stable) and hands this kernel the
+// sorted ids, the sort's permutation and the output gradient dy [n', D].
+//
+// Semantics: for each run of equal ids in [0, N), the sum of dy[perm[s], :]
+// over the run's slots s, in slot order, in f32, written once into row id of
+// the zero-filled [N, D] output. Ids outside [0, N) (PAD_ID among them) are
+// dropped. No atomics: each row has one writer, and the order of its sums is
+// fixed, so the result is the same bits run to run.
+//
+// What bounds it: memory. It reads the ids (4 B), the permutation (8 B) and
+// one D-wide row of dy (4D B) per slot, and writes each distinct row once: at
+// a two-tower batch of 4,096 rows of D = 128, about 2 x 4,096 x 512 B, a few
+// microseconds at 3.35 TB/s, so a launch costs more than its bytes. (The
+// zero fill of the dense output is the caller's, and at a 2M-row table it is
+// the larger cost.)
+//
+// What the design does about it: nothing clever yet. A warp per slot; the
+// warp of a run's first slot walks the run, 32 slots at a time (one id and
+// one permutation entry a lane, a ballot for where the run ends), and adds the
+// run's rows in slot order, ROWS_UNROLL rows' loads in flight before their
+// adds so that a long run (TwHIN's relation table: ~680 slots a run) is not
+// one load latency a row. Each lane holds 4 columns (a 16-byte vector) of
+// each 128-column chunk, or 1 column of each 32 when D % 4 != 0 or a base is
+// not 16-byte aligned. Other warps return at once.
+namespace {
+
+constexpr int ROWS_WARPS = 8;   // warps of a block, one slot each
+constexpr int ROWS_UNROLL = 8;  // rows whose loads a warp issues before it adds them (divides 32)
+
+template <bool VEC>
+__global__ void __launch_bounds__(ROWS_WARPS * 32) run_collapse_rows_kernel(const int* __restrict__ ids,
+                                                                          const long long* __restrict__ perm,
+                                                                          const float* __restrict__ dy,
+                                                                          float* __restrict__ out, long long n,
+                                                                          int D, int N) {
+  const int lane = threadIdx.x & 31;
+  const long long slot = static_cast<long long>(blockIdx.x) * ROWS_WARPS + (threadIdx.x >> 5);
+  if (slot >= n) return;
+  const int id = ids[slot];
+  if (id < 0 || id >= N) return;                // dropped: PAD_ID or out of range
+  if (slot > 0 && ids[slot - 1] == id) return;  // not the run's first slot
+  constexpr int WIDTH = VEC ? 4 : 1;            // columns a lane holds of a chunk
+  constexpr int CHUNK = 32 * WIDTH;
+  for (int c0 = 0; c0 < D; c0 += CHUNK) {
+    const int col = c0 + lane * WIDTH;
+    const bool mine = col < D;  // D % 4 == 0 on the vector path: a lane's 4 columns are all in or all out
+    float acc[WIDTH];
+#pragma unroll
+    for (int w = 0; w < WIDTH; ++w) acc[w] = 0.0f;
+    for (long long j = slot;; j += 32) {
+      const long long s = j + lane;
+      const bool in = s < n && ids[s] == id;  // sorted: the run is a prefix of the 32 slots
+      const unsigned m = __ballot_sync(FULL, in);
+      const int count = m == FULL ? 32 : __ffs(static_cast<int>(~m)) - 1;
+      const long long row = in ? perm[s] : 0;
+      for (int t = 0; t < count; t += ROWS_UNROLL) {
+        float v[ROWS_UNROLL][WIDTH];
+#pragma unroll
+        for (int u = 0; u < ROWS_UNROLL; ++u) {
+          const long long r = __shfl_sync(FULL, row, t + u);
+          if (t + u < count && mine) {
+            const float* src = dy + r * D + col;
+            if constexpr (VEC) {
+              const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+              v[u][0] = x.x, v[u][1] = x.y, v[u][2] = x.z, v[u][3] = x.w;
+            } else {
+              v[u][0] = __ldg(src);
+            }
+          } else {
+#pragma unroll
+            for (int w = 0; w < WIDTH; ++w) v[u][w] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < ROWS_UNROLL; ++u) {
+          if (t + u < count) {
+#pragma unroll
+            for (int w = 0; w < WIDTH; ++w) acc[w] += v[u][w];
+          }
+        }
+      }
+      if (count < 32) break;
+    }
+    if (mine) {
+      float* dst = out + static_cast<long long>(id) * D + col;
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+        dst[0] = acc[0];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// ids: [n] int32 sorted ascending; perm: [n] int64, slot s's row of dy; dy:
+// [n', D] f32 contiguous; out: [N, D] f32 contiguous and zero-filled. vec != 0
+// takes 16-byte vectors (D % 4 == 0, dy and out 16-byte aligned). Returns the
+// launch's cudaError_t.
+extern "C" int run_collapse_rows(const void* ids, const void* perm, const void* dy, void* out, long long n, int D,
+                                 int N, int vec, void* stream) {
+  if (n <= 0 || D <= 0 || N <= 0) return 0;
+  if (vec && (D % 4 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + ROWS_WARPS - 1) / ROWS_WARPS;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* i = static_cast<const int*>(ids);
+  const auto* p = static_cast<const long long*>(perm);
+  const auto* d = static_cast<const float*>(dy);
+  auto* o = static_cast<float*>(out);
+  if (vec)
+    run_collapse_rows_kernel<true><<<static_cast<unsigned>(blocks), ROWS_WARPS * 32, 0, s>>>(i, p, d, o, n, D, N);
+  else
+    run_collapse_rows_kernel<false><<<static_cast<unsigned>(blocks), ROWS_WARPS * 32, 0, s>>>(i, p, d, o, n, D, N);
+  return static_cast<int>(cudaGetLastError());
+}

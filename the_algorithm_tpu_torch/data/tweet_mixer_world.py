@@ -15,7 +15,14 @@ already has:
   flax draws them (``normal(0.02)``) from a seeded generator; the two-tower
   item table is exported once through the item tower;
 - host stores (trip popularity rows, similar consumers, producer engagers,
-  the model-based earlybird seeds and its linear doc score), seeded numpy.
+  the model-based earlybird seeds and its linear doc score), seeded numpy;
+- a planted-engagement training set for both models at the same shape
+  (:func:`planted_engagements`: user u engages with item π(u), and under
+  TwHIN relation r with item π_r(u), for seeded permutations), the JAX
+  tests' planted preferences (``tests/test_models_training.py``,
+  ``tests/test_twhin.py``) at the world's size, with its in-batch training
+  batches, losses and hits@K; :meth:`TweetMixerWorld.with_models` serves
+  trained models through the Home dense engines.
 
 The sizes are arguments; :data:`FULL` holds the bench's, nothing cut. The
 JAX package has no world at this size: its widths are the model configs'
@@ -25,7 +32,7 @@ defaults and its corpus and graphs ``bench.py``'s.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +42,8 @@ from the_algorithm_tpu_torch.data import foryou_world, sann_world
 from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.mixers import candidate_pipeline_catalog as cat
 from the_algorithm_tpu_torch.mixers import similarity_engines as se
-from the_algorithm_tpu_torch.models.twhin import RELATIONS, Twhin, TwhinConfig, entity_embeddings
-from the_algorithm_tpu_torch.models.two_tower import TwoTower, TwoTowerConfig, table_rows
+from the_algorithm_tpu_torch.models.twhin import RELATIONS, Twhin, TwhinConfig, entity_embeddings, twhin_loss
+from the_algorithm_tpu_torch.models.two_tower import TwoTower, TwoTowerConfig, in_batch_softmax_loss, table_rows
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 from the_algorithm_tpu_torch.search import earlybird as eb
@@ -219,6 +226,14 @@ class TweetMixerWorld:
     def device(self) -> torch.device:
         return self.two_tower_items.device
 
+    def with_models(self, twhin: Twhin, two_tower: TwoTower) -> "TweetMixerWorld":
+        """The same world serving these (trained) models: frozen copies on
+        the world's device, the two-tower item table exported anew."""
+        dev = self.device
+        tw = _moved(twhin, lambda d: Twhin(twhin.config, device=d), dev)
+        tt = _moved(two_tower, lambda d: TwoTower(two_tower.config, device=d), dev)
+        return dataclasses.replace(self, twhin=tw, two_tower=tt, two_tower_items=export_item_table(tt))
+
     def to(self, device) -> "TweetMixerWorld":
         """The same world with every device store on ``device``."""
         dev = torch.device(device)
@@ -318,6 +333,110 @@ class TweetMixerWorld:
             lookup_engines={LOOKUP_MODEL: lookup},
             lookup_default_model=LOOKUP_MODEL,
         )
+
+
+# -- planted engagements: what the world's models are trained on
+
+TRAIN_SEED = 17
+TRAIN_B = 4096  # in-batch negatives: this world's choice (the JAX tests use 16-64)
+
+
+class PlantedEngagements(NamedTuple):
+    """Each user's planted item: two-tower's π(u) and TwHIN's π_r(u) under
+    each relation r, all distinct (cuts of seeded permutations of the
+    items)."""
+
+    two_tower: np.ndarray  # [U] int32
+    twhin: np.ndarray  # [R, U] int32
+
+
+def planted_engagements(shape: TweetMixerShape) -> PlantedEngagements:
+    U, I, R = shape.num_users, shape.num_items, len(RELATIONS)
+    if R * U > I:
+        raise ValueError(f"{R} x {U} distinct planted items need more than {I} items")
+    rng = np.random.default_rng(TRAIN_SEED)
+    two_tower = rng.permutation(I)[:U].astype(np.int32)
+    twhin = rng.permutation(I)[:R * U].reshape(R, U).astype(np.int32)
+    return PlantedEngagements(two_tower, twhin)
+
+
+def two_tower_batches(planted: PlantedEngagements, B: int = TRAIN_B) -> Iterator[Dict]:
+    """Endless in-batch training batches ``{"users", "items"}`` [B] int32:
+    each epoch a seeded permutation of the users cut into batches of B."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    U = planted.two_tower.shape[0]
+    if not 0 < B <= U:
+        raise ValueError(f"batches of {B} distinct users from {U}")
+    while True:
+        order = rng.permutation(U)
+        for s in range(0, U - B + 1, B):
+            users = order[s:s + B].astype(np.int32)
+            yield {"users": users, "items": planted.two_tower[users]}
+
+
+def twhin_batches(planted: PlantedEngagements, B: int = TRAIN_B) -> Iterator[Dict]:
+    """Endless TwHIN batches ``{"users", "relations", "items"}`` [B] int32
+    over the R·U planted (user, relation, item) edges, each epoch a seeded
+    permutation of them."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    R, U = planted.twhin.shape
+    if not 0 < B <= R * U:
+        raise ValueError(f"batches of {B} edges from {R * U}")
+    while True:
+        order = rng.permutation(R * U)
+        for s in range(0, R * U - B + 1, B):
+            edge = order[s:s + B]
+            rel, users = (edge // U).astype(np.int32), (edge % U).astype(np.int32)
+            yield {"users": users, "relations": rel, "items": planted.twhin[rel, users]}
+
+
+def two_tower_train_loss(model: TwoTower, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The in-batch softmax at the model's temperature (a Trainer loss_fn)."""
+    u, v = model(batch["users"], batch["items"])
+    return in_batch_softmax_loss(u, v, model.config.temperature, batch["items"]), {}
+
+
+def twhin_train_loss(model: Twhin, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """TwHIN's in-batch softmax at the model's temperature (a Trainer loss_fn)."""
+    u, v = model(batch["users"], batch["relations"], batch["items"])
+    return twhin_loss(u, v, batch["items"], model.config.temperature), {}
+
+
+HITS_CHUNK = 128  # queries scored against every item at once: [128, 2M] f32 is 1 GB
+
+
+@torch.no_grad()
+def hits_at_k(queries: torch.Tensor, items: torch.Tensor, planted: torch.Tensor, k: int) -> float:
+    """The share of ``queries`` [Q, D] whose planted item (``planted`` [Q])
+    ranks among the top ``k`` of ``queries @ items.T`` over every item:
+    fewer than k items score above it."""
+    hits = 0
+    planted = planted.to(items.device).long()
+    for s in range(0, queries.shape[0], HITS_CHUNK):
+        q = queries[s:s + HITS_CHUNK].float()
+        scores = q @ items.float().T
+        own = scores.gather(1, planted[s:s + HITS_CHUNK, None])
+        hits += int(((scores > own).sum(dim=1) < k).sum())
+    return hits / max(queries.shape[0], 1)
+
+
+@torch.no_grad()
+def two_tower_hits(model: TwoTower, planted: PlantedEngagements, users: np.ndarray, k: int) -> float:
+    """hits@k of each of ``users``' planted item over all items (the item
+    tower's export)."""
+    dev = model.item_table.device
+    q = model.user_embeddings(torch.from_numpy(users.astype(np.int32)).to(dev))
+    return hits_at_k(q, export_item_table(model), torch.from_numpy(planted.two_tower[users]), k)
+
+
+@torch.no_grad()
+def twhin_hits(model: Twhin, planted: PlantedEngagements, users: np.ndarray, k: int) -> List[float]:
+    """hits@k of each of ``users``' planted item under each relation, over
+    every row of the item table."""
+    dev = model.item_table.device
+    u = torch.from_numpy(users.astype(np.int32)).to(dev)
+    return [hits_at_k(model.translate(u, torch.full_like(u, r)), model.item_table,
+                      torch.from_numpy(planted.twhin[r, users]), k) for r in range(planted.twhin.shape[0])]
 
 
 def _queries(shape: TweetMixerShape, cand: CandidateParts, rng: np.random.Generator) -> List[Query]:

@@ -1,12 +1,13 @@
 """TwHIN: heterogeneous-network knowledge-graph embeddings.
 
-Counterpart of ``the_algorithm_tpu/models/twhin.py`` (serving half): a
-TransE-style model over a multi-relation engagement graph (el-Kishky et al.
-2022, arXiv:2202.05387), score(u, r, v) = ⟨e_u + t_r, e_v⟩ with
-per-relation translation vectors. Every table read goes through
-:func:`~the_algorithm_tpu_torch.ops.gather.row_gather` with JAX's index rule
-(:func:`~the_algorithm_tpu_torch.models.two_tower.table_rows`). Training
-(``twhin_loss``) waits for the port's D-wide table gradient.
+Counterpart of ``the_algorithm_tpu/models/twhin.py``: a TransE-style model
+over a multi-relation engagement graph (el-Kishky et al. 2022,
+arXiv:2202.05387), score(u, r, v) = ⟨e_u + t_r, e_v⟩ with per-relation
+translation vectors, trained with in-batch negatives (:func:`twhin_loss`).
+Every table read goes through :func:`~the_algorithm_tpu_torch.models.
+two_tower.table_rows` (``row_gather`` with JAX's index rule, and under
+autograd the D-wide run collapse's dense table gradient); the user, item and
+relation tables are all trainable.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from the_algorithm_tpu_torch.core.device import resolve
-from the_algorithm_tpu_torch.models.two_tower import _t, init_table, table_rows
+from the_algorithm_tpu_torch.models.two_tower import _t, in_batch_softmax_loss, init_table, table_rows
 
 RELATIONS = (
     "follows", "favorites", "replies", "retweets", "mentions", "clicks",
@@ -58,6 +59,13 @@ class Twhin(nn.Module):
     def translate(self, user_ids: torch.Tensor, relation_ids: torch.Tensor) -> torch.Tensor:
         """e_u + t_r: two table reads, one ``row_gather`` launch each."""
         return table_rows(self.user_table, user_ids) + table_rows(self.relation_table, relation_ids)
+
+
+def twhin_loss(u_translated: torch.Tensor, v: torch.Tensor, item_ids: torch.Tensor,
+               temperature: float = 1.0) -> torch.Tensor:
+    """In-batch sampled softmax over ⟨e_u + t_r, e_v⟩ logits, an item that
+    is another example's positive masked out of its negatives (−1e9)."""
+    return in_batch_softmax_loss(u_translated, v, temperature, item_ids)
 
 
 def entity_embeddings(model: Twhin, table: str = "item_table") -> torch.Tensor:

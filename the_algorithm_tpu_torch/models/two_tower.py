@@ -1,16 +1,16 @@
-"""TwHIN-style two-tower embeddings: the dense user/item retrieval model.
+"""TwHIN-style two-tower embeddings with in-batch negatives: the dense
+user/item retrieval model.
 
-Counterpart of ``the_algorithm_tpu/models/two_tower.py`` (serving half): the
-user and item towers over id-embedding tables and the exact dense top-K
-(``tweet-mixer/.../twhin_ann/TwHINANNCandidateSource.scala``, the
-VecDB/HNSW capability served as a brute-force product). The tables are read
-through :func:`~the_algorithm_tpu_torch.ops.gather.row_gather`, each id
-mapped first to the row JAX's gather reads (:func:`~the_algorithm_tpu_torch.
-ops.gather.jax_rows`: a negative id wraps, an id past the end clamps). Those
-reads carry no gradient, so the tables are built frozen (``requires_grad``
-off) and a read of a table that asks for a gradient raises: the in-batch
-softmax training waits for the port's D-wide table gradient. A backward
-through the model reaches the towers only.
+Counterpart of ``the_algorithm_tpu/models/two_tower.py``: the user and item
+towers over id-embedding tables, the in-batch sampled softmax that trains
+them, and the exact dense top-K (``tweet-mixer/.../twhin_ann/
+TwHINANNCandidateSource.scala``, the VecDB/HNSW capability served as a
+brute-force product). Every table read goes through
+:func:`~the_algorithm_tpu_torch.ops.gather.table_read`: a ``row_gather``
+launch at the row JAX's gather reads (a negative id wraps, an id past the
+end clamps), and under autograd a dense [N, D] table gradient from the D-wide
+run collapse (an id outside the table gets none, as in JAX). Tables are
+trainable; serving reads them under ``torch.no_grad()`` or frozen.
 
 :func:`params_from_flax` turns the JAX package's flax params into this
 module's ``state_dict``; :func:`params_to_flax` is its inverse.
@@ -29,7 +29,7 @@ from torch import nn
 from the_algorithm_tpu_torch.core.device import resolve
 from the_algorithm_tpu_torch.models.masknet import _lecun_normal_
 from the_algorithm_tpu_torch.ops import retrieval
-from the_algorithm_tpu_torch.ops.gather import jax_rows, row_gather
+from the_algorithm_tpu_torch.ops.gather import table_read
 
 TABLE_STD = 0.02  # flax nn.initializers.normal(0.02)
 
@@ -46,24 +46,17 @@ class TwoTowerConfig:
     explicit_lookup: bool = False
 
 
-def table_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` as JAX's gather reads it, through ``row_gather``: ids of
-    any shape → ``ids.shape + (D,)``. The read carries no gradient, so a
-    table that asks for one while autograd records raises rather than stay
-    untrained."""
-    if table.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("a gradient through an embedding table read: the port has no table gradient "
-                                  "yet; freeze the table (requires_grad_(False)) or read it under torch.no_grad()")
-    ids = torch.as_tensor(ids, device=table.device)
-    return row_gather(jax_rows(ids, table.shape[0]).to(torch.int32), table)[0]
+# ``table[ids]`` as JAX's gather reads it, ids of any shape → ids.shape + (D,):
+# one row_gather launch, and the table's gradient when autograd records
+table_rows = table_read
 
 
 def init_table(rows: int, dim: int, device, generator: Optional[torch.Generator]) -> nn.Parameter:
-    """A [rows, dim] f32 table drawn as flax's ``normal(0.02)`` draws it,
-    frozen: :func:`table_rows` gives it no gradient."""
+    """A trainable [rows, dim] f32 table drawn as flax's ``normal(0.02)``
+    draws it."""
     t = torch.empty(rows, dim, device=device)
     t.normal_(0.0, TABLE_STD, generator=generator)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class Tower(nn.Module):
@@ -111,6 +104,24 @@ class TwoTower(nn.Module):
 
     def item_embeddings(self, item_ids: torch.Tensor) -> torch.Tensor:
         return self.item_tower(table_rows(self.item_table, item_ids))
+
+
+def in_batch_softmax_loss(u: torch.Tensor, v: torch.Tensor, temperature: float,
+                          item_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sampled softmax where the batch is the negative pool: logits[i, j] =
+    ⟨u_i, v_j⟩/τ in f32, label the diagonal. With ``item_ids``, an item that
+    is another example's positive too is masked out of that example's
+    negatives (accidental hits) with −1e9, not −inf (−inf poisons the
+    softmax's gradient). The mean over the batch of −log softmax at the
+    diagonal."""
+    logits = torch.matmul(u.float(), v.float().T) / temperature
+    B = logits.shape[0]
+    if item_ids is not None:
+        item_ids = torch.as_tensor(item_ids, device=logits.device)
+        eye = torch.eye(B, dtype=torch.bool, device=logits.device)
+        off_diag_dup = (item_ids[:, None] == item_ids[None, :]) & ~eye
+        logits = logits.masked_fill(off_diag_dup, -1e9)
+    return -torch.log_softmax(logits, dim=-1).diagonal().mean()
 
 
 def retrieve_top_k(query: torch.Tensor, items: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,6 +10,13 @@ here the plain version raises and the kernel traps.
 :func:`_plan` picks the kernel by alignment and sizes the TMA ring's launch
 from the row widths, the row count and the card's SM count alone, so the CPU
 tests can check every ring the card would run.
+
+:func:`table_read` is an embedding table's read under autograd: the forward
+one ``row_gather`` launch at JAX's rows (:func:`jax_rows`), the backward the
+D-wide run collapse (:func:`~the_algorithm_tpu_torch.ops.seg_scan.
+run_collapse_rows`) over the stably sorted ids, into a dense [N, D]
+gradient as ``jax.grad`` gives it: each row written once, no atomic
+scatter-add.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from the_algorithm_tpu_torch import _build
+from the_algorithm_tpu_torch.ops.seg_scan import run_collapse_rows
+from the_algorithm_tpu_torch.ops.sparse import PAD_ID
 
 MAX_TABLES = 3  # the kernel takes up to three table pointers per launch
 SMEM_PER_SM = 233_472  # 228 KB of shared memory on each SM of an H100...
@@ -156,3 +165,43 @@ def row_gather(ids: torch.Tensor, *tables: torch.Tensor) -> Tuple[torch.Tensor, 
 
 
 row_gather.launches = 0  # kernel launches, counted by the wrapper
+
+
+def grad_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The row each id's gradient goes to, as JAX's transpose of its gather
+    (a scatter-add that drops out-of-bounds ids) sends it: a negative id
+    counts from the end; an id still outside [0, n) is PAD_ID (dropped).
+    int32, ``ids.shape``."""
+    wrapped = torch.where(ids < 0, ids + n, ids)
+    return torch.where((wrapped >= 0) & (wrapped < n), wrapped, PAD_ID).to(torch.int32)
+
+
+class _TableRead(torch.autograd.Function):
+    """``table[ids]`` with JAX's index rule: forward one row_gather, backward
+    the D-wide collapse of the output gradient (a dense [N, D] gradient)."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        n = table.shape[0]
+        (rows,) = row_gather(jax_rows(ids, n).to(torch.int32), table)
+        ctx.save_for_backward(ids)
+        ctx.num_rows = n
+        return rows
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        (ids,) = ctx.saved_tensors
+        sorted_ids, perm = torch.sort(grad_ids(ids, ctx.num_rows).reshape(-1), stable=True)
+        dy = d_rows.reshape(-1, d_rows.shape[-1]).contiguous()
+        return None, run_collapse_rows(sorted_ids, perm, dy, ctx.num_rows)
+
+
+def table_read(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` as JAX's gather reads it, ids of any shape →
+    ``ids.shape + (D,)``, with a gradient for ``table`` when autograd asks
+    for one (:class:`_TableRead`). ``table`` is a contiguous [N, D] tensor
+    of 4-byte entries."""
+    ids = torch.as_tensor(ids, device=table.device)
+    return _TableRead.apply(ids, table)

@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from the_algorithm_tpu_torch.ops.gather import jax_rows, row_gather
+from the_algorithm_tpu_torch.ops.gather import grad_ids, jax_rows, row_gather
 from the_algorithm_tpu_torch.ops.retrieval import _dedup_sum
 from the_algorithm_tpu_torch.ops.seg_scan import MAX_VALUES
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID
@@ -97,10 +97,9 @@ def sparse_logits(
     squeeze = weights.dim() == 1
     w = weights[:, None] if squeeze else weights  # [N, O]
     n = w.shape[0]
-    wrapped = torch.where(batch.indices < 0, batch.indices + n, batch.indices)
-    grad_ids = torch.where((wrapped >= 0) & (wrapped < n), wrapped, PAD_ID).to(torch.int32)
     vals = torch.where(batch.mask, batch.values, 0.0)
-    logits = _SparseDot.apply(jax_rows(batch.indices, n).to(torch.int32), grad_ids, vals, w.contiguous())
+    logits = _SparseDot.apply(jax_rows(batch.indices, n).to(torch.int32), grad_ids(batch.indices, n), vals,
+                              w.contiguous())
     if bias is not None:
         logits = logits + bias
     return logits[..., 0] if squeeze else logits

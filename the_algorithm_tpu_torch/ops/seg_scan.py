@@ -14,6 +14,12 @@ separate 1-D form (there for ``jax.vmap``) has no counterpart.
 The kernel gives each row a thread-block cluster of CTAs, each scanning one
 tile of the row per pass; :func:`_plan` sizes the launch from Q, W, k and the
 SM count.
+
+:func:`run_collapse_rows` is the same collapse at k = D, the TPU kernel's
+any-k form that the k ≤ 3 templates do not reach: the D columns of an
+embedding table's output gradient summed per run of sorted ids and written
+into a dense [N, D] gradient, each row once (``csrc/seg_scan.cu``,
+``run_collapse_rows_kernel``; :func:`run_collapse_rows_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -157,3 +163,61 @@ def run_collapse_sorted(
 
 
 run_collapse_sorted.launches = 0  # kernel launches, counted by the wrapper
+
+
+def _check_rows(ids: torch.Tensor, perm: torch.Tensor, dy: torch.Tensor, num_rows: int) -> None:
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(f"ids must be int32 [n], got {ids.dtype} {tuple(ids.shape)}")
+    if perm.dtype != torch.int64 or perm.shape != ids.shape:
+        raise ValueError(f"perm must be int64 {tuple(ids.shape)}, got {perm.dtype} {tuple(perm.shape)}")
+    if dy.dtype != torch.float32 or dy.dim() != 2:
+        raise ValueError(f"dy must be float32 [n', D], got {dy.dtype} {tuple(dy.shape)}")
+    if not ids.device == perm.device == dy.device:
+        raise ValueError(f"ids on {ids.device}, perm on {perm.device}, dy on {dy.device}")
+    if not all(t.is_contiguous() for t in (ids, perm, dy)):
+        raise ValueError("run_collapse_rows takes contiguous tensors")
+    if not 0 < num_rows < 2**31:
+        raise ValueError(f"no [{num_rows}, D] gradient for int32 ids")
+
+
+def run_collapse_rows_plain(ids: torch.Tensor, perm: torch.Tensor, dy: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Plain PyTorch version: ``index_add_`` of the permuted rows into a
+    zero-filled gradient, in slot order, a spare row taking the dropped
+    slots. On the CPU each row's sum runs in slot order, as the kernel's."""
+    _check_rows(ids, perm, dy, num_rows)
+    grad = torch.zeros((num_rows + 1, dy.shape[1]), dtype=dy.dtype, device=dy.device)
+    rows = torch.where((ids >= 0) & (ids < num_rows), ids, num_rows).long()
+    grad.index_add_(0, rows, dy[perm])
+    return grad[:num_rows]
+
+
+def run_collapse_rows(ids: torch.Tensor, perm: torch.Tensor, dy: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The D-wide run collapse: a dense [num_rows, D] gradient whose row i
+    is Σ dy[perm[s], :] over the slots s with ids[s] == i, in slot order.
+
+    ids: [n] int32 sorted ascending (a stable sort's output); perm: [n]
+    int64, that sort's permutation, so slot s reads row perm[s] of dy and no
+    permuted copy is made; dy: [n', D] float32. Ids outside [0, num_rows)
+    (PAD_ID among them) are dropped. On a CUDA device this launches the
+    kernel or raises; only tensors on the CPU take the plain version.
+    """
+    if ids.device.type == "cpu":
+        return run_collapse_rows_plain(ids, perm, dy, num_rows)
+    _check_rows(ids, perm, dy, num_rows)
+    if ids.device.type != "cuda":
+        raise ValueError(f"run_collapse_rows runs on cpu or cuda, not {ids.device}")
+    n, D = ids.shape[0], dy.shape[1]
+    grad = torch.zeros((num_rows, D), dtype=dy.dtype, device=dy.device)
+    if n == 0 or D == 0:  # nothing to launch
+        return grad
+    vec = D % 4 == 0 and dy.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0
+    with torch.cuda.device(ids.device):
+        stream = torch._C._cuda_getCurrentRawStream(ids.device.index)
+        err = _build.lib().run_collapse_rows(ids.data_ptr(), perm.data_ptr(), dy.data_ptr(), grad.data_ptr(),
+                                             n, D, num_rows, int(vec), stream)
+    _build.check(err, "run_collapse_rows")
+    run_collapse_rows.launches += 1
+    return grad
+
+
+run_collapse_rows.launches = 0  # kernel launches, counted by the wrapper
