@@ -131,12 +131,20 @@ Phases, each printing its result on its own line:
     required exactly), steps on CUDA events, the step's device time by part,
     hits@100 of the planted item over all 2M items for 1,024 users (at least
     0.5; TwHIN per relation); the D-wide collapse on each table gradient's
-    own inputs against its plain version, bit-equal run to run and against
-    ``index_put_(accumulate=True)``, with times; RealGraph's edge model
+    own inputs (:func:`time_collapse_rows`: one launch a call, bit-equal run
+    to run, against float64 sums, its plain version and
+    ``index_put_(accumulate=True)``), with times; RealGraph's edge model
     (fit, ``top_edges``) and a WALS fit (``consumer_embedding``,
     ``similar_items``), each card against CPU; then the trained tables
     served through the Home dense engines of a world built as step 12's,
-    the planted items in a served user's dense top-200s.
+    the planted items in a served user's dense top-200s;
+14. collapse_rows, in a child process after that one (``chip_smoke.py
+    --collapse-rows`` runs it alone): ``run_collapse_rows``' run-length
+    sweep at D=128 (4,096 slots into 6, 64, 4,096, 16,384, 65,536, 262,144
+    and 2,000,000 rows; 100,000 into one row and into 1,000), each shape held
+    as the path's inputs are, with device times against the bound, the plain
+    version and ``index_put_``; from 16,384 rows up the kernel writing every
+    row against ``torch.zeros`` and the kernel writing the touched rows.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
@@ -527,6 +535,62 @@ def phase_collapse_sweep(dev):
     for i, (Q, W, k) in enumerate(COLLAPSE_SWEEP):
         time_collapse(collapse_entries(dev, Q, W, k, i), "seeded rows")
     torch.cuda.empty_cache()
+
+
+# run_collapse_rows' run-length sweep at D=128: (n slots, N rows, draw). 4,096
+# slots (a B=4,096 training step) into TwHIN's 6-row relation table (runs of
+# ~680), 64 rows, and a 4,096-row, a 16,384-row user and a 2,000,000-row item
+# table (distinct ids where N >= n); 100,000 slots into one row (one run over
+# every resident CTA) and into 1,000 rows at random (runs of ~100)
+ROWS_SWEEP = [(4096, 6, "uniform"), (4096, 64, "uniform"), (4096, 4096, "distinct"), (4096, 16_384, "distinct"),
+              (4096, 65_536, "distinct"), (4096, 262_144, "distinct"), (4096, 2_000_000, "distinct"),
+              (100_000, 1, "uniform"), (100_000, 1000, "uniform")]
+ROWS_D = 128
+
+
+def phase_collapse_rows_sweep(dev):
+    """run_collapse_rows at each ROWS_SWEEP shape on seeded ids and dy rows
+    (standard normal, as gradients of both signs) through
+    :func:`time_collapse_rows`; at the tables of 16,384 rows and more also
+    the zero fill by ``torch.zeros`` with the kernel writing only the
+    touched rows against the kernel's own zeros, in device time: the
+    measurement behind ``seg_scan.FILL_BYTES``. Run in a child process
+    (``chip_smoke.py --collapse-rows``): its ~30 profiler sessions would
+    shorten the main process's later ones."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for n, N, draw in ROWS_SWEEP:
+        if draw == "distinct":
+            ids = torch.randperm(N, generator=g, device=dev)[:n].int()
+        else:
+            ids = torch.randint(0, N, (n,), generator=g, device=dev, dtype=torch.int32)
+        ids, perm = torch.sort(ids, stable=True)
+        dy = torch.randn((n, ROWS_D), generator=g, device=dev)
+        label = f"sweep {n} slots into [{N}, {ROWS_D}] ({draw})"
+        out[label] = time_collapse_rows(ids, perm, dy, N, label, hold_to_plain=False)
+        if N >= 16_384:  # the kernel writing every row against torch.zeros + the touched rows
+            kernel = lambda: seg_scan.run_collapse_rows(ids, perm, dy, N)  # noqa: E731
+            chosen, times, results = seg_scan.FILL_BYTES, {}, {}
+            try:
+                for fill in (None, 0, 0, None):
+                    seg_scan.FILL_BYTES = fill
+                    results[fill] = kernel()
+                    times.setdefault(fill, []).append(device_ms(kernel, 50))
+            finally:
+                seg_scan.FILL_BYTES = chosen
+            torch.cuda.synchronize()
+            require(torch.equal(results[None], results[0]),
+                    f"run_collapse_rows after a torch.zeros fill differs at {label}")
+            print(f"kernel run_collapse_rows: {label}: device {sum(times[None]) / 2:.4f} ms writing every row, "
+                  f"{sum(times[0]) / 2:.4f} ms as torch.zeros + the touched rows (bit-equal; each the mean of two, "
+                  f"in turns); the plan fills above {chosen} bytes: "
+                  f"{'fill' if seg_scan._rows_plan(n, N, ROWS_D, 1).fill else 'every row'} here")
+            del results
+        del ids, perm, dy
+        torch.cuda.empty_cache()
+    return {label: {k: r[k] for k in ("device_ms", "cold_device_ms", "bound_ms", "plain_device_ms",
+                                      "library_device_ms")}
+            for label, r in out.items()}
 
 
 # the hydration tables' widths (the_algorithm_tpu/mixers/device_hydration.py:71-102)
@@ -2564,17 +2628,54 @@ def collapse_inputs(trainer, batch):
     return seen
 
 
-def time_collapse_rows(ids, perm, dy, num_rows, label):
-    """The D-wide collapse on one of the path's inputs: bit-equal run to
-    run, against its plain version (SUM_RTOL / SUM_ATOL) and against
-    index_put_(accumulate=True) (EMB_LIB_RTOL); each side's time on CUDA
-    events (the zero-filled dense output included) and in device time, the
-    kernel's alone too."""
+def collapse_rows_sums64(ids, perm, dy, num_rows):
+    """Float64 sums of each row's slots and of their magnitudes, and each
+    row's count of slots, on the card (index_add_ in float64)."""
+    keep = (ids >= 0) & (ids < num_rows)
+    rows = torch.where(keep, ids, num_rows).long()
+    x = dy[perm].double()
+    sums = torch.zeros((num_rows + 1, dy.shape[1]), dtype=torch.float64, device=dy.device).index_add_(0, rows, x)
+    mags = torch.zeros_like(sums).index_add_(0, rows, x.abs())
+    terms = torch.bincount(rows, minlength=num_rows + 1)[:num_rows]
+    return sums[:num_rows], mags[:num_rows], terms
+
+
+# bytes copied before each call of a cold-L2 timing: more than twice the H100's
+# 50 MB L2, so none of a kernel's inputs is left there
+L2_FLUSH_BYTES = 128 << 20
+_FLUSH = []
+
+
+def cold_device_ms(fn, dev, reps=20):
+    """Device time of one call of ``fn`` that finds the L2 cold, as a call
+    inside a training step does: an L2_FLUSH_BYTES ``copy_`` (left out of
+    the time, as every Memcpy) before each of ``reps`` calls."""
+    if not _FLUSH:
+        _FLUSH.extend(torch.empty(L2_FLUSH_BYTES // 8, dtype=torch.int32, device=dev) for _ in range(2))
+    src, dst = _FLUSH
+    return device_ms(lambda: (dst.copy_(src), fn()), reps, kernels_only=True)
+
+
+def time_collapse_rows(ids, perm, dy, num_rows, label, hold_to_plain=True):
+    """The D-wide collapse on one input: one launch a call, bit-equal run to
+    run, each row no slot names exactly 0; the kernel, its plain version
+    and index_put_(accumulate=True) each within m·2⁻²⁴·Σ|x| of the float64
+    sums (a run of m terms: the bound of any order of summation); the kernel
+    within SUM_RTOL of each entry's Σ|x| (+ SUM_ATOL) of its plain version
+    and, with ``hold_to_plain`` (the path's own inputs), within SUM_RTOL /
+    SUM_ATOL of each entry too, and within EMB_LIB_RTOL of index_put_; each
+    side's time on CUDA events and in device time, warm and with the L2
+    cold. The kernel writes the whole dense gradient, zeros included (above
+    ``seg_scan.FILL_BYTES``, after a ``torch.zeros`` fill, which is timed with it)."""
+    before = seg_scan.run_collapse_rows.launches
     got = seg_scan.run_collapse_rows(ids, perm, dy, num_rows)
     again = seg_scan.run_collapse_rows(ids, perm, dy, num_rows)
+    torch.cuda.synchronize()
+    require(seg_scan.run_collapse_rows.launches == before + 2, f"run_collapse_rows: not one launch a call at {label}")
     plain = seg_scan.run_collapse_rows_plain(ids, perm, dy, num_rows)
-    rows = torch.where(ids == PAD_ID, num_rows, ids).long()
-    rows_unsorted = torch.empty_like(rows).scatter_(0, perm, rows)  # the table read's own order
+    keep = (ids >= 0) & (ids < num_rows)
+    rows_unsorted = torch.empty(ids.shape, dtype=torch.long, device=ids.device).scatter_(
+        0, perm, torch.where(keep, ids, num_rows).long())  # the table read's own order
 
     def library():
         return torch.zeros((num_rows + 1, dy.shape[1]), device=dy.device).index_put_(
@@ -2583,40 +2684,54 @@ def time_collapse_rows(ids, perm, dy, num_rows, label):
     lib = library()
     torch.cuda.synchronize()
     require(torch.equal(got, again), f"run_collapse_rows not bit-equal run to run at {label}")
-    require(torch.allclose(got, plain, rtol=SUM_RTOL, atol=SUM_ATOL), f"run_collapse_rows off its plain version at {label}")
+    sums, mags, terms = collapse_rows_sums64(ids, perm, dy, num_rows)
+    bound = terms[:, None].double() * 2.0 ** -24 * mags
+    for name, side in (("the kernel", got), ("the plain version", plain), ("index_put_", lib)):
+        require(bool(((side.double() - sums).abs() <= bound).all()),
+                f"run_collapse_rows: {name} beyond m·2⁻²⁴·Σ|x| of the float64 sums at {label}")
+    require(bool((got[terms == 0] == 0.0).all()), f"run_collapse_rows: a row no slot names is not 0 at {label}")
+    diff = (got - plain).abs()
+    err = float(diff.max())
+    require(bool((diff.double() <= SUM_RTOL * mags + SUM_ATOL).all()),
+            f"run_collapse_rows off its plain version by more than {SUM_RTOL}·Σ|x| + {SUM_ATOL} at {label}")
+    outside = int((diff > SUM_ATOL + SUM_RTOL * plain.abs()).sum())  # entries outside rtol / atol of plain's own
     scale = float(lib.abs().max())
     lib_err = float((got - lib).abs().max())
-    require(bool(((got - lib).abs() <= EMB_LIB_RTOL * (lib.abs() + scale)).all()),
-            f"run_collapse_rows off index_put_(accumulate=True) at {label} (max |diff| {lib_err:.3g})")
-    err = float((got - plain).abs().max())
+    if hold_to_plain:
+        require(outside == 0, f"run_collapse_rows off its plain version at {label}")
+        require(bool(((got - lib).abs() <= EMB_LIB_RTOL * (lib.abs() + scale)).all()),
+                f"run_collapse_rows off index_put_(accumulate=True) at {label} (max |diff| {lib_err:.3g})")
+    worst = float(((got.double() - sums).abs() / bound.clamp(min=1e-30)).max())
+    del sums, mags, bound, diff
     n, D = dy.shape
-    distinct = int(torch.unique(ids[ids != PAD_ID]).numel())
+    distinct = int(torch.unique(ids[keep]).numel())
     kernel = lambda: seg_scan.run_collapse_rows(ids, perm, dy, num_rows)  # noqa: E731
     plain_fn = lambda: seg_scan.run_collapse_rows_plain(ids, perm, dy, num_rows)  # noqa: E731
     ms, plain_ms = timed_pair(kernel, plain_fn)
     lib_ms = cuda_ms(library, 50)
     dev_ms, plain_dev_ms, lib_dev_ms = device_ms(kernel, 50), device_ms(plain_fn, 50), device_ms(library, 50)
-    own = per_call_ms([e for e in session_kernels([kernel] * 50) if "run_collapse_rows" in e.key], 50)
-    # the function's bytes: ids and permutation and each dy row read once, the dense
-    # [N, D] gradient written once; the kernel's alone: the touched rows written once
+    cold_ms = cold_device_ms(kernel, dy.device)
+    # the function's bytes: ids and permutation and each dy row read once, the
+    # dense [N, D] gradient written once
     moved = n * (4 + 8 + 4 * D) + num_rows * D * 4
-    own_moved = n * (4 + 8 + 4 * D) + distinct * D * 4
-    bound, own_bound = bound_ms(moved), bound_ms(own_moved)
-    print(f"kernel run_collapse_rows: {label}: {n} slots, {distinct} runs into [{num_rows}, {D}]; bit-equal run to "
-          f"run; max |err| {err:.3g} vs plain (rtol {SUM_RTOL}, atol {SUM_ATOL}), {lib_err:.3g} vs "
-          f"index_put_(accumulate=True); device {dev_ms:.4f} ms with the zero fill ({100 * bound / dev_ms:.1f}% of its "
-          f"{bound:.4f} ms bound), the kernel alone {'not measured' if own is None else f'{own:.4f} ms'} (its "
-          f"{own_bound:.4f} ms bound, touched rows), plain {plain_dev_ms:.4f} ms, index_put_ {lib_dev_ms:.4f} ms; "
-          f"events {ms:.4f} / {plain_ms:.4f} / {lib_ms:.4f} ms")
+    bound_t = bound_ms(moved)
+    print(f"kernel run_collapse_rows: {label}: {n} slots, {distinct} runs into [{num_rows}, {D}]; one launch a call, "
+          f"bit-equal run to run, untouched rows 0; each side within m·2⁻²⁴·Σ|x| of float64 (the kernel at "
+          f"{worst:.3g} of it); max |err| {err:.3g} vs plain ({outside} entries outside rtol {SUM_RTOL} / atol "
+          f"{SUM_ATOL} of plain's own value; none beyond {SUM_RTOL}·Σ|x| + {SUM_ATOL}), {lib_err:.3g} vs "
+          f"index_put_(accumulate=True); device {dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s, "
+          f"{100 * bound_t / dev_ms:.1f}% of its {bound_t:.4f} ms bound), {cold_ms:.4f} ms with the L2 cold, plain "
+          f"{plain_dev_ms:.4f} ms, index_put_ {lib_dev_ms:.4f} ms; events {ms:.4f} / {plain_ms:.4f} / {lib_ms:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
-                kernel_device_ms=own, bound_ms=bound, bound_by="bytes", kernel_bound_ms=own_bound,
-                library_ms=lib_ms, library_device_ms=lib_dev_ms)
+                bound_ms=bound_t, bound_by="bytes", library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                cold_device_ms=cold_ms)
 
 
 def embedding_step_breakdown(model, loss_fn, opt, batch, reps=2):
     """One profiler session of ``reps`` steps: device time by part (the
-    forward, the backward without the table gradients, the table gradients'
-    collapse kernels, the dense gradients' zero fills, the update)."""
+    forward, the backward without the table gradients' kernels, the table
+    gradients' collapse kernels, the update). A ``torch.zeros`` fill before
+    a collapse of over ``seg_scan.FILL_BYTES`` counts as backward."""
     def step():
         opt.zero_grad(set_to_none=True)
         with torch.profiler.record_function("forward"):
@@ -2646,8 +2761,6 @@ def embedding_step_breakdown(model, loss_fn, opt, batch, reps=2):
         for k in e.kernels:
             if "run_collapse_rows" in k.name:
                 part = "table gradient (collapse)"
-            elif backward and ("fill" in k.name.lower() or k.name.startswith("Memset")):
-                part = "table gradient (zero fill)"
             elif backward:
                 part = "backward"
             elif "update" in chain:
@@ -2944,6 +3057,7 @@ def main() -> int:
     by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
     emb = phase_apart("--embedding-training", "embedding_training")
     by_path["embedding_training"] = emb["launches"]
+    phase_apart("--collapse-rows", "run_collapse_rows sweep")
     kernels["run_collapse_rows"] = emb["run_collapse_rows"]
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
@@ -2967,5 +3081,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone,
-                    "--embedding-training": phase_embedding_training}
+                    "--embedding-training": phase_embedding_training, "--collapse-rows": phase_collapse_rows_sweep}
     sys.exit(child_main(CHILD_PHASES[sys.argv[1]]) if sys.argv[1:] and sys.argv[1] in CHILD_PHASES else main())

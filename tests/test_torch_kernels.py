@@ -419,10 +419,34 @@ def test_home_product_on_the_card_matches_the_cpu(cuda_device):
 # (n slots, N table rows, id draw, D, dy offset in floats): a two-tower batch
 # of distinct users and items, TwHIN's 6-row relation table (runs of ~680
 # slots), random repeats, a width off the 16-byte path (D = 13), a width of
-# three 128-column chunks less one vector, and dy 4 bytes off 16-byte alignment
+# three 128-column chunks less one vector, and dy 4 bytes off 16-byte alignment;
+# one run of 100,000 slots into one row (its parts summed over every resident
+# CTA); every slot dropped; runs of thousands of slots across many CTAs' shares
+# on both column paths; and merges of one CTA's least share of items
+# (_rows_plan's ROWS_MIN_SHARE, slots + rows) and of one item less and more
 COLLAPSE_ROWS_CASES = [(4096, 16_384, "distinct", 128, 0), (4096, 2_000_000, "distinct", 128, 0),
                        (4096, 6, "runs", 128, 0), (100_000, 1000, "random", 128, 0), (37, 50, "random", 13, 0),
-                       (5000, 300, "random", 380, 0), (3000, 100, "random", 128, 1), (1, 1, "random", 4, 0)]
+                       (5000, 300, "random", 380, 0), (3000, 100, "random", 128, 1), (1, 1, "random", 4, 0),
+                       (100_000, 1, "random", 128, 0), (5000, 100, "dropped", 128, 0),
+                       (30_000, 7, "random", 380, 0), (30_000, 5, "random", 13, 0), (20_000, 3, "random", 128, 1),
+                       *[(n, seg_scan.ROWS_MIN_SHARE - n + d, "random", 128, 0) for n in (1, 40) for d in (-1, 0, 1)]]
+
+
+def _collapse_rows_case(rng, n, N, draw):
+    """Sorted ids of a case, the stable sort's permutation, and the unsorted ids."""
+    if draw == "distinct":
+        ids = rng.permutation(N)[:n]
+    elif draw == "dropped":  # every id outside [0, N)
+        ids = rng.choice(np.array([-7, -1, N, N + 5, PAD_ID], np.int64), n)
+    else:
+        ids = rng.integers(0, N, n)
+    ids = ids.astype(np.int32)
+    if draw != "dropped":
+        ids[rng.random(n) < 0.05] = PAD_ID
+        if n > 3:
+            ids[:3] = [-1, N, N + 5]
+    perm = np.argsort(ids, kind="stable")
+    return ids[perm], perm, ids
 
 
 @pytest.mark.parametrize("n,N,draw,D,offset", COLLAPSE_ROWS_CASES)
@@ -430,19 +454,15 @@ def test_run_collapse_rows_kernel_matches_plain(cuda_device, n, N, draw, D, offs
     """The D-wide collapse against float64 run sums, as is its plain
     version on the card and on the CPU: each an f32 sum of a run's m terms,
     within m·2⁻²⁴ of the sum of their magnitudes (the bound of any order of
-    summation); bit-equal run to run; ids past the table and PAD_ID
-    dropped."""
+    summation); bit-equal run to run; one launch a call; ids past the table
+    and PAD_ID dropped; a row no slot names exactly 0."""
     rng = np.random.default_rng(n + N + D)
-    ids = (rng.permutation(N)[:n] if draw == "distinct" else rng.integers(0, N, n)).astype(np.int32)
-    ids[rng.random(n) < 0.05] = PAD_ID
-    if n > 3:
-        ids[:3] = [-1, N, N + 5]
-    perm = np.argsort(ids, kind="stable")
+    sorted_ids, perm, ids = _collapse_rows_case(rng, n, N, draw)
     dy_np = rng.normal(size=(n, D)).astype(np.float32)
     buf = torch.empty(n * D + offset, device=cuda_device)
     dy = buf[offset:].view(n, D)
     dy.copy_(torch.from_numpy(dy_np))
-    args = (torch.from_numpy(ids[perm]).to(cuda_device), torch.from_numpy(perm).to(cuda_device), dy, N)
+    args = (torch.from_numpy(sorted_ids).to(cuda_device), torch.from_numpy(perm).to(cuda_device), dy, N)
     before = seg_scan.run_collapse_rows.launches
     got = seg_scan.run_collapse_rows(*args)
     again = seg_scan.run_collapse_rows(*args)
@@ -459,6 +479,28 @@ def test_run_collapse_rows_kernel_matches_plain(cuda_device, n, N, draw, D, offs
     for side in (got.cpu(), seg_scan.run_collapse_rows_plain(*args).cpu(),
                  seg_scan.run_collapse_rows_plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))):
         assert (np.abs(side.numpy() - want) <= bound).all()
+    assert (got.cpu().numpy()[terms[:, 0] == 0] == 0.0).all()
+
+
+@pytest.mark.parametrize("n,N,draw", [(4096, 2_000_000, "distinct"), (4096, 6, "runs"), (5000, 100, "dropped")])
+def test_run_collapse_rows_writes_zeros_over_dirty_memory(cuda_device, monkeypatch, n, N, draw):
+    """The kernel writes every row, the untouched ones as 0.0, whatever the
+    allocator hands back: a block of the output's size is filled with NaN
+    and freed just before the call (no torch.zeros fill first, at any size)."""
+    monkeypatch.setattr(seg_scan, "FILL_BYTES", None)
+    rng = np.random.default_rng(n + N)
+    sorted_ids, perm, ids = _collapse_rows_case(rng, n, N, draw)
+    args = (torch.from_numpy(sorted_ids).to(cuda_device), torch.from_numpy(perm).to(cuda_device),
+            torch.from_numpy(rng.normal(size=(n, 128)).astype(np.float32)).to(cuda_device), N)
+    dirty = torch.full((N, 128), float("nan"), device=cuda_device)
+    del dirty
+    got = seg_scan.run_collapse_rows(*args)
+    torch.cuda.synchronize()
+    named = np.zeros(N, bool)
+    named[ids[(ids >= 0) & (ids < N)]] = True
+    assert torch.isfinite(got).all()
+    assert (got[torch.from_numpy(~named).to(cuda_device)] == 0.0).all()
+    assert torch.equal(got, seg_scan.run_collapse_rows(*args))
 
 
 def test_table_read_gradient_on_the_card_matches_the_cpu(cuda_device):

@@ -153,3 +153,101 @@ def test_plan_at_the_candidate_sources_shapes():
     for k in (1, 2):
         cluster, tile, passes, _, threads, _ = seg_scan._plan(256, 4096, k, 132)
         assert (cluster, tile, passes, threads) == (1, 2048, 2, 288)
+
+
+# -- the D-wide collapse's launch: _rows_plan -----------------------------------
+
+def _rows_ids(rng, n, N):
+    """Sorted ids of n slots drawn from [0, N), a few dropped: negative ids at
+    the front, ids past the table and PAD_ID at the back."""
+    ids = rng.integers(0, N, n).astype(np.int64)
+    ids[rng.random(n) < 0.05] = PAD_ID
+    ids[: min(n, 2)] = -1
+    ids[2:4] = N
+    return np.sort(ids)
+
+
+def _merge_split(ids, N, plan):
+    """(slots before, rows before) at each CTA's and each warp's first merge
+    item, as the kernel finds them: a slot sits after the slots before it
+    and the rows below its id (clamped to [0, N])."""
+    n = len(ids)
+    W = n + N
+    place = np.arange(n) + np.clip(ids, 0, N)
+    cta = np.arange(plan.grid + 1) * W // plan.grid
+    warp = cta[:-1, None] + np.arange(seg_scan.ROWS_WARPS + 1) * np.diff(cta)[:, None] // seg_scan.ROWS_WARPS
+    split = lambda d: (np.searchsorted(place, d), d - np.searchsorted(place, d))  # noqa: E731
+    return cta, warp, split(cta), split(warp)
+
+
+def _check_split(ids, N, d, k, r):
+    """Each share's slots and rows: every slot and row in exactly one share,
+    and a share's slots name rows from its first row to the one after its last."""
+    assert k[..., 0].min() >= 0 and (np.diff(k, axis=-1) >= 0).all() and (np.diff(r, axis=-1) >= 0).all()
+    assert (np.diff(k, axis=-1) + np.diff(r, axis=-1) == np.diff(d, axis=-1)).all()
+    clamped = np.clip(ids, 0, N)
+    for k0, k1, r0, r1 in zip(k[..., :-1].ravel(), k[..., 1:].ravel(), r[..., :-1].ravel(), r[..., 1:].ravel()):
+        assert ((clamped[k0:k1] >= r0) & (clamped[k0:k1] <= r1)).all()
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("D", [13, 128])
+@pytest.mark.parametrize("N", [1, 6, 128, 129, 16_384, 2_000_000])
+@pytest.mark.parametrize("n", [1, 37, 4096, 100_000])
+def test_rows_plan_splits_the_merge_evenly_over_resident_ctas(n, N, D, sms):
+    plan = seg_scan._rows_plan(n, N, D, sms)
+    grid, share, scratch, path, fill = plan
+    # resident: no more CTAs than the SMs hold, none with an empty share
+    assert 1 <= grid <= min(sms * seg_scan.ROWS_CTAS_PER_SM, n + N), plan
+    assert grid == min(sms * seg_scan.ROWS_CTAS_PER_SM, -(-(n + N) // seg_scan.ROWS_MIN_SHARE)), plan
+    ids = _rows_ids(np.random.default_rng(n + N), n, N)
+    cta, warp, (k, r), (wk, wr) = _merge_split(ids, N, plan)
+    # every slot and every row in exactly one CTA's share, and in one warp's slice
+    assert (k[0], r[0], k[-1], r[-1]) == (0, 0, n, N)
+    _check_split(ids, N, cta, k, r)
+    _check_split(ids, N, warp, wk, wr)
+    assert (wk[:, -1] == k[1:]).all() and (wr[:, -1] == r[1:]).all()
+    # even to within one item, the largest the plan's share
+    sizes = np.diff(cta)
+    assert sizes.max() - sizes.min() <= 1 and sizes.max() == share, plan
+    # the scratch holds a tail and a head row for each warp and a part row for each CTA
+    assert scratch == (2 * seg_scan.ROWS_WARPS + 1) * grid * D, plan
+    assert scratch * 4 <= 17 * 132 * seg_scan.ROWS_CTAS_PER_SM * D * 4  # 4.6 MB at D = 128
+    assert path == ("vec" if D % 4 == 0 else "scalar") and fill == (4 * N * D > seg_scan.FILL_BYTES), plan
+
+
+@pytest.mark.parametrize("table,n,N,grid,share,fill", [("item", 4096, 2_000_000, 528, 3796, True),
+                                                       ("user", 4096, 16_384, 320, 64, False),
+                                                       ("relation", 4096, 6, 65, 64, False)])
+def test_rows_plan_at_the_embedding_training_shapes(table, n, N, grid, share, fill):
+    """A two-tower or TwHIN step's table gradients (B=4,096 slots, D=128):
+    the item table's 2M rows over every resident CTA after a torch.zeros
+    fill (1.02 GB), the user table's 16,384 over 320 CTAs, and the relation
+    table's 6 runs of ~680 slots cut across several CTAs each, so their
+    parts are summed by the CTA that holds the run's row."""
+    plan = seg_scan._rows_plan(n, N, 128, 132)
+    assert (plan.grid, plan.share, plan.path, plan.fill) == (grid, share, "vec", fill)
+    if table == "relation":
+        ids = np.sort(np.random.default_rng(0).integers(0, N, n))
+        _, _, (k, _), _ = _merge_split(ids, N, plan)
+        owner = np.searchsorted(k, np.arange(n), side="right") - 1  # the CTA holding each slot
+        spans = [len(np.unique(owner[ids == i])) for i in range(N)]
+        assert min(spans) >= 5, spans
+
+
+@pytest.mark.parametrize("args", [(0, 5, 128, 132), (2**30, 5, 128, 132), (5, 0, 128, 132), (5, 2**31, 128, 132),
+                                  (5, 5, 0, 132), (5, 5, 128, 0)])
+def test_rows_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        seg_scan._rows_plan(*args)
+
+
+def test_rows_plan_fills_first_only_above_fill_bytes(monkeypatch):
+    """FILL_BYTES: a gradient of more bytes is zero-filled by torch.zeros and
+    the kernel writes its touched rows only; None: the kernel writes every row."""
+    assert seg_scan._rows_plan(4096, 2_000_000, 128, 132).fill  # 1.02 GB
+    assert not seg_scan._rows_plan(4096, 16_384, 128, 132).fill  # 8.4 MB
+    monkeypatch.setattr(seg_scan, "FILL_BYTES", None)
+    assert not seg_scan._rows_plan(4096, 2_000_000, 128, 132).fill
+    monkeypatch.setattr(seg_scan, "FILL_BYTES", 0)
+    assert seg_scan._rows_plan(1, 1, 1, 132).fill

@@ -40,8 +40,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # ids, v0, v1, v2, out_ids, o0, o1, o2, Q, W, k, cluster, tile, passes, stages, threads, smem, stream
     "run_collapse_sorted": [_P] * 8 + [_I] * 9 + [_P],
-    # ids, perm, dy, out, n, D, N, vec, stream
-    "run_collapse_rows": [_P] * 4 + [_L, _I, _I, _I, _P],
+    # ids, perm, dy, out, scratch, flags, n, D, N, grid, vec, zero_rows, stream
+    "run_collapse_rows": [_P] * 6 + [_L] + [_I] * 5 + [_P],
     # ids, B, R, k, t0, t1, t2, o0, o1, o2, rb0, rb1, rb2, rows, piece, stages, grid, smem, stream
     "row_gather_ring": [_P, _I, _I, _I] + [_P] * 6 + [_L] * 3 + [_I, _L] + [_I] * 3 + [_P],
     # ids, B, R, k, t0, t1, t2, o0, o1, o2, rb0, rb1, rb2, num_sms, stream

@@ -511,118 +511,499 @@ extern "C" int run_collapse_sorted(const void* ids, const void* v0, const void* 
 // (ops/gather.py:table_read) sorts its ids (stable) and hands this kernel the
 // sorted ids, the sort's permutation and the output gradient dy [n', D].
 //
-// Semantics: for each run of equal ids in [0, N), the sum of dy[perm[s], :]
-// over the run's slots s, in slot order, in f32, written once into row id of
-// the zero-filled [N, D] output. Ids outside [0, N) (PAD_ID among them) are
-// dropped. No atomics: each row has one writer, and the order of its sums is
-// fixed, so the result is the same bits run to run.
+// Semantics: row i of the dense [N, D] f32 output is the sum of dy[perm[s], :]
+// over the slots s with ids[s] == i, and 0 where no slot names i. Ids outside
+// [0, N) (PAD_ID among them) are dropped. One launch writes every row of the
+// output exactly once (or, after the caller's zero fill, every touched row).
 //
-// What bounds it: memory. It reads the ids (4 B), the permutation (8 B) and
-// one D-wide row of dy (4D B) per slot, and writes each distinct row once: at
-// a two-tower batch of 4,096 rows of D = 128, about 2 x 4,096 x 512 B, a few
-// microseconds at 3.35 TB/s, so a launch costs more than its bytes. (The
-// zero fill of the dense output is the caller's, and at a 2M-row table it is
-// the larger cost.)
+// What bounds it: memory. The dense output is written once (4ND bytes) and
+// the ids, the permutation and each touched dy row are read once (n(12 + 4D)
+// bytes): 0.306 ms at a [2,000,000, 128] item table (3.35 TB/s), 3 us at a
+// [16,384, 128] user table, 0.6 us at TwHIN's [6, 128] relation table, where a
+// launch costs more than its bytes.
 //
-// What the design does about it: nothing clever yet. A warp per slot; the
-// warp of a run's first slot walks the run, 32 slots at a time (one id and
-// one permutation entry a lane, a ballot for where the run ends), and adds the
-// run's rows in slot order, ROWS_UNROLL rows' loads in flight before their
-// adds so that a long run (TwHIN's relation table: ~680 slots a run) is not
-// one load latency a row. Each lane holds 4 columns (a 16-byte vector) of
-// each 128-column chunk, or 1 column of each 32 when D % 4 != 0 or a base is
-// not 16-byte aligned. Other warps return at once.
+// What the design does about it.
+// (1) The work is the merge of the N output rows with the n sorted slots (a
+//     slot sits before the row it names; a dropped slot's id is clamped to
+//     [0, N], so negative ids sort before row 0 and ids >= N after row N - 1,
+//     where a CTA reads them and skips them). CTA c of a grid of G, all
+//     resident, takes merge items [cW/G, (c+1)W/G) of W = n + N, and its 8
+//     warps split that evenly again, each finding where its slice starts by
+//     a 64-way search of the sorted ids in half a warp (2 rounds of loads at
+//     n = 4,096; the other half finds where it ends). So every CTA moves
+//     about the same bytes whether its share is mostly rows to zero (a
+//     16,384-row table) or slots to sum (6 rows).
+// (2) A warp walks its slice in slot order, 32 slots at a time, one id and
+//     one permutation entry a lane (the first 32 in the same round of loads
+//     as the ids beside the slice), with ROWS_UNROLL dy rows in flight (a
+//     16-byte vector a lane, or one column when D % 4 != 0 or a base is off
+//     16 bytes), summing each run in slot order and writing a run whose row
+//     lies in its slice. Last, it writes 16-byte zeros over the rows of its
+//     slice that no slot names, so the dense output needs no fill. Above
+//     FILL_BYTES (ops/seg_scan.py) the caller zero-fills instead and the
+//     kernel writes the touched rows only: on an H100 the warps' own zeros
+//     lose to a fill from some tens of MB (chip_smoke.py's sweep).
+// (3) A run cut by a slice boundary is summed in parts, in a fixed order. The
+//     run's slots at a warp's end (its tail) and, when its first row's run
+//     began earlier, at its start (its head) go to scratch rows. After a CTA
+//     barrier the CTA adds its warps' tails of the run that leaves the CTA,
+//     in warp order, into the CTA's part, and raises its flag; a warp whose
+//     first row's run began in an earlier warp of the CTA adds those tails,
+//     then its head. When the run began in an earlier CTA, warp 0 finds that
+//     CTA (a search for the run's first slot), the CTA waits for the flags of
+//     the CTAs from there on (the grid is resident, and every CTA raises its
+//     flag before it waits on any, so the wait ends), its 8 warps add their
+//     parts in 8 fixed ranges, and the row is the ranges' sums in order plus
+//     the CTA's own sum. The order of every sum depends only on (n, N, D, the
+//     grid), not on timing. A reader sets a flag back to 0, so the flags need
+//     no fill between launches, and the kernel uses no atomics.
 namespace {
 
-constexpr int ROWS_WARPS = 8;   // warps of a block, one slot each
-constexpr int ROWS_UNROLL = 8;  // rows whose loads a warp issues before it adds them (divides 32)
+constexpr int ROWS_WARPS = 8;  // warps of a CTA, each a slice of the CTA's share
+constexpr int ROWS_THREADS = ROWS_WARPS * 32;
+constexpr int ROWS_CTAS_PER_SM = 4;  // the residency the grid is sized for: 64 registers a thread
+constexpr int ROWS_UNROLL = 8;       // dy rows a warp has in flight (divides 32)
+constexpr long long ROWS_SPIN_LIMIT = 1LL << 26;  // polls of a flag, ~64 ns apart, before the launch gives up
+
+struct RowsArgs {
+  const int* ids;
+  const long long* perm;
+  const float* dy;
+  float* out;
+  float* scratch;  // D floats each: a tail row per warp, a head row per warp, a part row per CTA
+  int* flags;      // per CTA: 1 once its part is out, 0 between launches
+  int n, D, N, G;
+  int zero_rows;  // 0: the caller zero-filled out, and only the touched rows are written
+};
+
+// A warp's slice of the merge: slots [k0, k1) and rows [r0, r1).
+struct Slice {
+  int k0, k1, r0, r1;
+};
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// returns once a CTA's flag is up. One that never rises is a fault of the
+// grid: the launch ends with an error after seconds rather than hang the card.
+__device__ __forceinline__ void wait_flag(const int* p) {
+  for (long long spin = 0; load_acquire(p) == 0; ++spin) {
+    if (spin == ROWS_SPIN_LIMIT) __trap();
+    __nanosleep(64);
+  }
+}
+
+// The first j of [lo, hi) where pred(j) is false, pred holding on a prefix (hi
+// if it holds throughout). The P lanes of `mask` (lane index i = 0..P-1) probe
+// Q places each a round, P * Q in all, cutting the range P * Q + 1 ways: a
+// range of 4,096 slots takes 2 rounds at P * Q = 64.
+template <int P, int Q, typename Pred>
+__device__ __forceinline__ int warp_search(int lo, int hi, int i, unsigned mask, Pred pred) {
+  while (hi > lo) {
+    const int step = (hi - lo + P * Q) / (P * Q + 1);
+    bool below[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {  // probe q * P + i: the Q loads of a lane are in flight together
+      const long long j = lo + static_cast<long long>(q * P + i + 1) * step - 1;
+      below[q] = j < hi && pred(static_cast<int>(j));
+    }
+    int c = 0;  // the probes below: a prefix of the P * Q
+#pragma unroll
+    for (int q = 0; q < Q; ++q) c += __popc(__ballot_sync(mask, below[q]));
+    const long long jc = lo + static_cast<long long>(c + 1) * step - 1;  // the first probe that failed
+    if (c < P * Q && jc < hi) hi = static_cast<int>(jc);
+    lo += c * step;
+  }
+  return lo;
+}
+
+// The CTA whose share [cW/G, (c+1)W/G) holds merge item p.
+__device__ __forceinline__ int cta_of(long long p, long long W, int G) {
+  int c = static_cast<int>(p * G / W);
+  while (c + 1 < G && (c + 1) * W / G <= p) ++c;
+  return c;
+}
 
 template <bool VEC>
-__global__ void __launch_bounds__(ROWS_WARPS * 32) run_collapse_rows_kernel(const int* __restrict__ ids,
-                                                                          const long long* __restrict__ perm,
-                                                                          const float* __restrict__ dy,
-                                                                          float* __restrict__ out, long long n,
-                                                                          int D, int N) {
-  const int lane = threadIdx.x & 31;
-  const long long slot = static_cast<long long>(blockIdx.x) * ROWS_WARPS + (threadIdx.x >> 5);
-  if (slot >= n) return;
-  const int id = ids[slot];
-  if (id < 0 || id >= N) return;                // dropped: PAD_ID or out of range
-  if (slot > 0 && ids[slot - 1] == id) return;  // not the run's first slot
-  constexpr int WIDTH = VEC ? 4 : 1;            // columns a lane holds of a chunk
-  constexpr int CHUNK = 32 * WIDTH;
-  for (int c0 = 0; c0 < D; c0 += CHUNK) {
-    const int col = c0 + lane * WIDTH;
-    const bool mine = col < D;  // D % 4 == 0 on the vector path: a lane's 4 columns are all in or all out
-    float acc[WIDTH];
+struct Cols {
+  static constexpr int WIDTH = VEC ? 4 : 1;  // columns a lane holds of a chunk
+  static constexpr int CHUNK = 32 * WIDTH;
+  float x[WIDTH];
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int w = 0; w < WIDTH; ++w) acc[w] = 0.0f;
-    for (long long j = slot;; j += 32) {
-      const long long s = j + lane;
-      const bool in = s < n && ids[s] == id;  // sorted: the run is a prefix of the 32 slots
-      const unsigned m = __ballot_sync(FULL, in);
-      const int count = m == FULL ? 32 : __ffs(static_cast<int>(~m)) - 1;
-      const long long row = in ? perm[s] : 0;
+    for (int w = 0; w < WIDTH; ++w) x[w] = 0.0f;
+  }
+  __device__ __forceinline__ void load(const float* p) {  // dy: read once, through the read-only path
+    if constexpr (VEC) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+    } else {
+      x[0] = __ldg(p);
+    }
+  }
+  __device__ __forceinline__ void load_l2(const float* p) {  // scratch another warp wrote: past L1
+    zero();
+    add_l2(p);
+  }
+  __device__ __forceinline__ void add_shared(const float* p) {
+    if constexpr (VEC) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      x[0] += v.x, x[1] += v.y, x[2] += v.z, x[3] += v.w;
+    } else {
+      x[0] += p[0];
+    }
+  }
+  __device__ __forceinline__ void add_l2(const float* p) {
+    if constexpr (VEC) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+      x[0] += v.x, x[1] += v.y, x[2] += v.z, x[3] += v.w;
+    } else {
+      x[0] += __ldcg(p);
+    }
+  }
+  __device__ __forceinline__ void add(const Cols& o) {
+#pragma unroll
+    for (int w = 0; w < WIDTH; ++w) x[w] += o.x[w];
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    if constexpr (VEC) {
+      *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+      p[0] = x[0];
+    }
+  }
+};
+
+// rows [from, to) of out set to 0 by one warp: 16-byte stores on the vector path
+template <bool VEC>
+__device__ __forceinline__ void zero_fill(float* out, long long from, long long to, int D, int lane) {
+  if (from >= to) return;
+  if constexpr (VEC) {
+    float4* p = reinterpret_cast<float4*>(out + from * D);
+    const long long count = (to - from) * D / 4;
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+    for (long long i = lane; i < count; i += 32) p[i] = z;
+  } else {
+    float* p = out + from * D;
+    const long long count = (to - from) * D;
+#pragma unroll 4
+    for (long long i = lane; i < count; i += 32) p[i] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ float* tail_row(const RowsArgs& a, int cta, int warp) {
+  return a.scratch + (static_cast<long long>(cta) * ROWS_WARPS + warp) * a.D;
+}
+
+__device__ __forceinline__ float* head_row(const RowsArgs& a, int cta, int warp) {
+  return a.scratch + (static_cast<long long>(a.G + cta) * ROWS_WARPS + warp) * a.D;
+}
+
+__device__ __forceinline__ float* part_row(const RowsArgs& a, int cta) {
+  return a.scratch + (static_cast<long long>(a.G) * 2 * ROWS_WARPS + cta) * a.D;
+}
+
+// One warp's slice, in slot order, one column chunk at a time: each run summed
+// in slot order into its row or, cut by the slice's ends, into the warp's tail
+// or head row. (id0, row0): the slice's first 32 slots, loaded by the caller.
+template <bool VEC>
+__device__ void walk_slice(const RowsArgs& a, const Slice& sl, bool carried, int id0, long long row0, float* tail,
+                           float* head, int lane) {
+  using C = Cols<VEC>;
+  for (int c0 = 0; c0 < a.D; c0 += C::CHUNK) {
+    const int col = c0 + lane * C::WIDTH;
+    const bool mine = col < a.D;  // on the vector path a lane's 4 columns are all in or all out
+    int run = 0;
+    bool have = false;
+    C acc;
+    acc.zero();
+    auto flush = [&]() {
+      if (!mine) return;
+      if (run == sl.r1 && sl.r1 < a.N) {
+        acc.store(tail + col);
+      } else if (carried && run == sl.r0) {
+        acc.store(head + col);
+      } else if (run >= sl.r0 && run < sl.r1) {
+        acc.store(a.out + static_cast<long long>(run) * a.D + col);
+      }  // else a dropped id
+    };
+    for (int base = sl.k0; base < sl.k1; base += 32) {
+      const int s = base + lane;
+      const int count = sl.k1 - base < 32 ? sl.k1 - base : 32;
+      int my_id = id0;
+      long long my_row = row0;
+      if (base != sl.k0) {  // the id and the permutation entry in one round of loads
+        my_id = s < sl.k1 ? __ldg(a.ids + s) : 0;
+        my_row = s < sl.k1 ? __ldg(a.perm + s) : -1;
+      }
+      if (my_id < 0 || my_id >= a.N) my_row = -1;  // dropped: no dy row read
       for (int t = 0; t < count; t += ROWS_UNROLL) {
-        float v[ROWS_UNROLL][WIDTH];
+        C v[ROWS_UNROLL];
 #pragma unroll
         for (int u = 0; u < ROWS_UNROLL; ++u) {
-          const long long r = __shfl_sync(FULL, row, t + u);
-          if (t + u < count && mine) {
-            const float* src = dy + r * D + col;
-            if constexpr (VEC) {
-              const float4 x = __ldg(reinterpret_cast<const float4*>(src));
-              v[u][0] = x.x, v[u][1] = x.y, v[u][2] = x.z, v[u][3] = x.w;
-            } else {
-              v[u][0] = __ldg(src);
-            }
+          const long long r = __shfl_sync(FULL, my_row, t + u);
+          if (t + u < count && r >= 0 && mine) {
+            v[u].load(a.dy + r * a.D + col);
           } else {
-#pragma unroll
-            for (int w = 0; w < WIDTH; ++w) v[u][w] = 0.0f;
+            v[u].zero();
           }
         }
 #pragma unroll
         for (int u = 0; u < ROWS_UNROLL; ++u) {
+          const int id = __shfl_sync(FULL, my_id, t + u);
           if (t + u < count) {
-#pragma unroll
-            for (int w = 0; w < WIDTH; ++w) acc[w] += v[u][w];
+            if (!have || id != run) {
+              if (have) flush();
+              run = id;
+              have = true;
+              acc.zero();
+            }
+            acc.add(v[u]);
           }
         }
       }
-      if (count < 32) break;
     }
-    if (mine) {
-      float* dst = out + static_cast<long long>(id) * D + col;
-      if constexpr (VEC) {
-        *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      } else {
-        dst[0] = acc[0];
+    if (have) flush();
+  }
+}
+
+// The rows of a slice that no slot names, zeroed: those before each run's row
+// and after the last (the carried row r0 is its run's owner's to write).
+template <bool VEC>
+__device__ void zero_gaps(const RowsArgs& a, const Slice& sl, bool carried, int lane) {
+  long long next = carried ? sl.r0 + 1 : sl.r0;  // the lowest row not yet written
+  for (int base = sl.k0; base < sl.k1; base += 32) {
+    const int s = base + lane;
+    const int count = sl.k1 - base < 32 ? sl.k1 - base : 32;
+    const int my_id = s < sl.k1 ? __ldg(a.ids + s) : 0;  // read by the walk just before
+    for (int t = 0; t < count; ++t) {
+      const int id = __shfl_sync(FULL, my_id, t);
+      if (id >= next && id < sl.r1) {
+        zero_fill<VEC>(a.out, next, id, a.D, lane);
+        next = id + 1;
       }
     }
   }
+  zero_fill<VEC>(a.out, next, sl.r1, a.D, lane);
+}
+
+// The warps before `w` whose tails are slots of row R, as the first of them
+// (w if none): a run goes back through a warp only if that warp holds no row.
+__device__ __forceinline__ int first_tail(const Slice* sl, const bool* tail, int w, int R) {
+  int first = w;
+  for (int v = w - 1; v >= 0; --v) {
+    if (sl[v].r1 != R) break;
+    if (tail[v]) first = v;
+    if (sl[v].r0 != sl[v].r1) break;
+  }
+  return first;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(ROWS_THREADS, ROWS_CTAS_PER_SM) run_collapse_rows_kernel(RowsArgs a) {
+  using C = Cols<VEC>;
+  __shared__ Slice s_slice[ROWS_WARPS];
+  __shared__ bool s_tail[ROWS_WARPS];
+  __shared__ bool s_intra;  // the owner's head row holds a sum: the tails of warps before it, its own head
+  __shared__ int s_first;   // the CTA where the run of the CTA's first row began
+  __shared__ __align__(16) float s_sum[ROWS_WARPS][C::CHUNK];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, cta = blockIdx.x;
+  const long long W = static_cast<long long>(a.n) + a.N;
+
+  // this warp's slice: half a warp finds where it starts, half where it ends,
+  // the slots before a merge item d (those placed below d: a slot after the
+  // slots before it and the rows below its id, clamped to [0, N])
+  const long long d0 = cta * W / a.G, d1 = (cta + 1) * W / a.G;
+  const long long dw = d0 + warp * (d1 - d0) / ROWS_WARPS, dw1 = d0 + (warp + 1) * (d1 - d0) / ROWS_WARPS;
+  const int half = lane >> 4;
+  const long long d = half ? dw1 : dw;
+  const int k = warp_search<16, 4>(static_cast<int>(d - a.N > 0 ? d - a.N : 0), static_cast<int>(d < a.n ? d : a.n),
+                                   lane & 15, half ? 0xffff0000u : 0x0000ffffu, [&](int j) {
+                                     const int id = __ldg(a.ids + j);
+                                     return static_cast<long long>(j) + (id < 0 ? 0 : (id > a.N ? a.N : id)) < d;
+                                   });
+  Slice sl;
+  sl.k0 = __shfl_sync(FULL, k, 0);
+  sl.k1 = __shfl_sync(FULL, k, 16);
+  sl.r0 = static_cast<int>(dw - sl.k0);
+  sl.r1 = static_cast<int>(dw1 - sl.k1);
+  // one round of loads: the ids beside the slice's ends, its first 32 slots
+  const int before = sl.k0 > 0 ? __ldg(a.ids + sl.k0 - 1) : -1, end = sl.k1 > sl.k0 ? __ldg(a.ids + sl.k1 - 1) : -1;
+  const int s0 = sl.k0 + lane;
+  const int id0 = s0 < sl.k1 ? __ldg(a.ids + s0) : 0;
+  const long long row0 = s0 < sl.k1 ? __ldg(a.perm + s0) : -1;
+  // the run of row r0 began before this slice; its slots at the slice's end are a tail
+  const bool carried = sl.r0 < sl.r1 && sl.k0 > 0 && before == sl.r0;
+  const bool tail = sl.r1 < a.N && sl.k1 > sl.k0 && end == sl.r1;
+  walk_slice<VEC>(a, sl, carried, id0, row0, tail_row(a, cta, warp), head_row(a, cta, warp), lane);
+  if (lane == 0) {
+    s_slice[warp] = sl;
+    s_tail[warp] = tail;
+  }
+  __syncthreads();  // the slices, tails and heads are out
+
+  // the CTA's first row R0; cross: its run began in an earlier CTA, and `owner`
+  // (the first warp holding a row) writes it
+  const Slice first = s_slice[0], last = s_slice[ROWS_WARPS - 1];
+  int owner = 0;
+  while (owner < ROWS_WARPS - 1 && s_slice[owner].r0 == s_slice[owner].r1) ++owner;
+  const bool cross = first.r0 < last.r1 && first.k0 > 0 && a.ids[first.k0 - 1] == first.r0;
+
+  if (warp == ROWS_WARPS - 1) {
+    // the CTA's part: its warps' tails of the run that leaves it, in warp
+    // order, then its flag up (the barrier, then a release store: the lanes'
+    // writes come first)
+    const int w0 = first_tail(s_slice, s_tail, ROWS_WARPS, last.r1);
+    if (w0 < ROWS_WARPS) {
+      for (int c0 = 0; c0 < a.D; c0 += C::CHUNK) {
+        const int col = c0 + lane * C::WIDTH;
+        if (col >= a.D) continue;
+        C acc;
+        acc.zero();
+        for (int v = w0; v < ROWS_WARPS; ++v)
+          if (s_tail[v]) acc.add_l2(tail_row(a, cta, v) + col);
+        acc.store(part_row(a, cta) + col);
+      }
+      __syncwarp();
+      if (lane == 0) store_release(a.flags + cta, 1);
+    }
+  }
+  if (carried) {
+    // row r0: the tails of the warps before this one that hold its run, then
+    // this warp's head; when the run began in an earlier CTA that sum waits
+    // in the head row for the earlier CTAs' parts
+    const int w0 = first_tail(s_slice, s_tail, warp, sl.r0);
+    const bool own_head = sl.k0 < sl.k1 && a.ids[sl.k0] == sl.r0;
+    const bool wait = cross && warp == owner;
+    if (wait && lane == 0) s_intra = w0 < warp || own_head;
+    if (!wait || w0 < warp) {  // (a lone head is in place already)
+      float* head = head_row(a, cta, warp);
+      for (int c0 = 0; c0 < a.D; c0 += C::CHUNK) {
+        const int col = c0 + lane * C::WIDTH;
+        if (col >= a.D) continue;
+        C acc;
+        acc.zero();
+        for (int v = w0; v < warp; ++v)
+          if (s_tail[v]) acc.add_l2(tail_row(a, cta, v) + col);
+        if (own_head) acc.add_l2(head + col);
+        acc.store(wait ? head + col : a.out + static_cast<long long>(sl.r0) * a.D + col);
+      }
+    }
+  }
+  if (cross) {
+    // row R0's run began in an earlier CTA: warp 0 finds that CTA by a search
+    // of the ids, the 8 warps add the CTAs' parts in 8 fixed ranges (the lanes
+    // wait on a range's flags together), and the owner adds those sums in
+    // order, then its own
+    if (warp == 0) {
+      const int start =
+          warp_search<32, 2>(0, first.k0, lane, FULL, [&](int j) { return __ldg(a.ids + j) < first.r0; });
+      if (lane == 0) s_first = cta_of(start + static_cast<long long>(first.r0), W, a.G);
+    }
+    __syncthreads();
+    const int c_first = s_first, parts = cta - c_first;
+    const int p0 = c_first + warp * parts / ROWS_WARPS, p1 = c_first + (warp + 1) * parts / ROWS_WARPS;
+    for (int p = p0 + lane; p < p1; p += 32) {
+      wait_flag(a.flags + p);
+      a.flags[p] = 0;  // read once: 0 again for the next launch
+    }
+    __syncwarp();
+    for (int c0 = 0; c0 < a.D; c0 += C::CHUNK) {
+      const int col = c0 + lane * C::WIDTH;
+      if (col < a.D && p1 > p0) {
+        C acc;
+        acc.zero();
+        int p = p0;
+        for (; p + ROWS_UNROLL <= p1; p += ROWS_UNROLL) {  // ROWS_UNROLL parts in flight, added in order
+          C v[ROWS_UNROLL];
+#pragma unroll
+          for (int u = 0; u < ROWS_UNROLL; ++u) v[u].load_l2(part_row(a, p + u) + col);
+#pragma unroll
+          for (int u = 0; u < ROWS_UNROLL; ++u) acc.add(v[u]);
+        }
+        for (; p < p1; ++p) acc.add_l2(part_row(a, p) + col);
+        acc.store(&s_sum[warp][lane * C::WIDTH]);
+      }
+      __syncthreads();
+      if (warp == owner && col < a.D) {
+        C acc;
+        acc.zero();
+        for (int v = 0; v < ROWS_WARPS; ++v)
+          if ((v + 1) * parts / ROWS_WARPS > v * parts / ROWS_WARPS) acc.add_shared(&s_sum[v][lane * C::WIDTH]);
+        if (s_intra) acc.add_l2(head_row(a, cta, owner) + col);
+        acc.store(a.out + static_cast<long long>(first.r0) * a.D + col);
+      }
+      __syncthreads();
+    }
+  }
+  // last, the rows no slot names: their stores hold up no other CTA
+  if (a.zero_rows) zero_gaps<VEC>(a, sl, carried, lane);
+}
+
+// CTAs of the kernel the card holds at once: the most a grid may have, since a
+// CTA may wait on an earlier one. Cached per device.
+template <bool VEC>
+cudaError_t rows_resident(int* resident) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && cached[dev] > 0) {
+    *resident = cached[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, run_collapse_rows_kernel<VEC>, ROWS_THREADS, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *resident = per_sm * sms;
+  if (dev < 64) cached[dev] = *resident;
+  return cudaSuccess;
+}
+
+template <bool VEC>
+cudaError_t launch_rows(const RowsArgs& a, cudaStream_t stream) {
+  int resident = 0;
+  cudaError_t err = rows_resident<VEC>(&resident);
+  if (err != cudaSuccess) return err;
+  if (a.G > resident) return cudaErrorInvalidConfiguration;  // a wait could outlast the grid
+  run_collapse_rows_kernel<VEC><<<a.G, ROWS_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // ids: [n] int32 sorted ascending; perm: [n] int64, slot s's row of dy; dy:
-// [n', D] f32 contiguous; out: [N, D] f32 contiguous and zero-filled. vec != 0
-// takes 16-byte vectors (D % 4 == 0, dy and out 16-byte aligned). Returns the
-// launch's cudaError_t.
-extern "C" int run_collapse_rows(const void* ids, const void* perm, const void* dy, void* out, long long n, int D,
-                                 int N, int vec, void* stream) {
+// [n', D] f32 contiguous; out: [N, D] f32 contiguous (zero-filled by the caller
+// when zero_rows == 0; otherwise every row is written here). scratch: (2 * 8 +
+// 1) * grid * D floats; flags: grid ints, all 0 (and left 0). grid: CTAs, at
+// most n + N and as many as the card holds at once (ops/seg_scan.py:_rows_plan).
+// vec != 0 takes 16-byte vectors (D % 4 == 0; dy, out and scratch 16-byte
+// aligned). Returns the launch's cudaError_t.
+extern "C" int run_collapse_rows(const void* ids, const void* perm, const void* dy, void* out, void* scratch,
+                                 void* flags, long long n, int D, int N, int grid, int vec, int zero_rows,
+                                 void* stream) {
   if (n <= 0 || D <= 0 || N <= 0) return 0;
-  if (vec && (D % 4 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0))
+  if (n >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);  // slots are int32 indices, with room
+  // every CTA's share holds an item, so every CTA a run crosses holds part of it
+  if (grid < 1 || grid > n + N || scratch == nullptr || flags == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + ROWS_WARPS - 1) / ROWS_WARPS;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && (D % 4 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(scratch) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowsArgs a{static_cast<const int*>(ids), static_cast<const long long*>(perm), static_cast<const float*>(dy),
+                   static_cast<float*>(out), static_cast<float*>(scratch), static_cast<int*>(flags),
+                   static_cast<int>(n), D, N, grid, zero_rows};
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* i = static_cast<const int*>(ids);
-  const auto* p = static_cast<const long long*>(perm);
-  const auto* d = static_cast<const float*>(dy);
-  auto* o = static_cast<float*>(out);
-  if (vec)
-    run_collapse_rows_kernel<true><<<static_cast<unsigned>(blocks), ROWS_WARPS * 32, 0, s>>>(i, p, d, o, n, D, N);
-  else
-    run_collapse_rows_kernel<false><<<static_cast<unsigned>(blocks), ROWS_WARPS * 32, 0, s>>>(i, p, d, o, n, D, N);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(vec ? launch_rows<true>(a, s) : launch_rows<false>(a, s));
 }

@@ -18,13 +18,18 @@ SM count.
 :func:`run_collapse_rows` is the same collapse at k = D, the TPU kernel's
 any-k form that the k ≤ 3 templates do not reach: the D columns of an
 embedding table's output gradient summed per run of sorted ids and written
-into a dense [N, D] gradient, each row once (``csrc/seg_scan.cu``,
-``run_collapse_rows_kernel``; :func:`run_collapse_rows_plain` on the CPU).
+into a dense [N, D] gradient, every row once, zeros included, by one launch
+(``csrc/seg_scan.cu``, ``run_collapse_rows_kernel``;
+:func:`run_collapse_rows_plain` on the CPU); a gradient over
+:data:`FILL_BYTES` is zero-filled by ``torch.zeros`` first and the kernel
+writes its touched rows. Its CTAs split the merge of the N rows with the n
+slots evenly; :func:`_rows_plan` sizes the launch from n, N, D and the SM
+count.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -191,15 +196,62 @@ def run_collapse_rows_plain(ids: torch.Tensor, perm: torch.Tensor, dy: torch.Ten
     return grad[:num_rows]
 
 
+ROWS_WARPS = 8  # warps of a CTA, each a slice of the CTA's share (csrc/seg_scan.cu)
+ROWS_CTAS_PER_SM = 4  # CTAs of 256 threads an SM holds at 64 registers: the grid's ceiling
+ROWS_MIN_SHARE = 64  # merge items (rows + slots) a CTA takes at least: 8 a warp (tuned on an H100, chip_smoke.py)
+# a gradient of more bytes than this is zero-filled by torch.zeros and the
+# kernel writes only its touched rows; None: the kernel writes every row. On an
+# H100 the kernel's own zeros (each warp its own run of rows) lose to the fill
+# from some tens of MB: 0.333 against 0.321 ms at [2,000,000, 128], 0.054
+# against 0.052 at [262,144, 128], but 0.019 against 0.021 at [65,536, 128]
+# (chip_smoke.py's run_collapse_rows sweep)
+FILL_BYTES: Optional[int] = 64 << 20
+
+
+class RowsPlan(NamedTuple):
+    grid: int  # CTAs, all resident at once
+    share: int  # merge items of the largest CTA share, of n + N
+    scratch: int  # floats: a tail and a head row a warp, a part row a CTA
+    path: str  # "vec": 16-byte columns (D % 4 == 0, aligned bases); "scalar": one column a lane
+    fill: bool  # the output is zero-filled first and the kernel writes the touched rows only
+
+
+def _rows_plan(n: int, N: int, D: int, sms: int) -> RowsPlan:
+    """The launch of the D-wide collapse of n slots into a [N, D] gradient on
+    ``sms`` SMs: as many CTAs as give each at least :data:`ROWS_MIN_SHARE`
+    of the n + N merge items, and no more than the card holds at once (a CTA
+    may wait on an earlier one's part); shares even to within one item."""
+    if not 0 < n < 2**30 or not 0 < N < 2**31 or not 0 < D < 2**31 or sms < 1:
+        raise ValueError(f"no launch for n={n} slots into [{N}, {D}] on {sms} SMs")
+    items = n + N
+    grid = min(sms * ROWS_CTAS_PER_SM, -(-items // ROWS_MIN_SHARE))
+    return RowsPlan(grid, -(-items // grid), (2 * ROWS_WARPS + 1) * grid * D, "vec" if D % 4 == 0 else "scalar",
+                    FILL_BYTES is not None and 4 * N * D > FILL_BYTES)
+
+
+# one flag a CTA for each (device, stream): the kernel leaves them all 0, so
+# launches on one stream share them and launches on two streams never do
+_FLAGS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _flags(device: torch.device, stream: int, size: int) -> torch.Tensor:
+    flags = _FLAGS.get((device.index, stream))
+    if flags is None or flags.numel() < size:
+        flags = _FLAGS[(device.index, stream)] = torch.zeros(size, dtype=torch.int32, device=device)
+    return flags
+
+
 def run_collapse_rows(ids: torch.Tensor, perm: torch.Tensor, dy: torch.Tensor, num_rows: int) -> torch.Tensor:
     """The D-wide run collapse: a dense [num_rows, D] gradient whose row i
-    is Σ dy[perm[s], :] over the slots s with ids[s] == i, in slot order.
+    is Σ dy[perm[s], :] over the slots s with ids[s] == i, 0 where none.
 
     ids: [n] int32 sorted ascending (a stable sort's output); perm: [n]
     int64, that sort's permutation, so slot s reads row perm[s] of dy and no
     permuted copy is made; dy: [n', D] float32. Ids outside [0, num_rows)
     (PAD_ID among them) are dropped. On a CUDA device this launches the
-    kernel or raises; only tensors on the CPU take the plain version.
+    kernel or raises; only tensors on the CPU take the plain version. The
+    kernel sums a run in slot order within a warp's slice and adds the
+    slices' sums in slice order, so a result has the same bits run to run.
     """
     if ids.device.type == "cpu":
         return run_collapse_rows_plain(ids, perm, dy, num_rows)
@@ -207,14 +259,19 @@ def run_collapse_rows(ids: torch.Tensor, perm: torch.Tensor, dy: torch.Tensor, n
     if ids.device.type != "cuda":
         raise ValueError(f"run_collapse_rows runs on cpu or cuda, not {ids.device}")
     n, D = ids.shape[0], dy.shape[1]
-    grad = torch.zeros((num_rows, D), dtype=dy.dtype, device=dy.device)
-    if n == 0 or D == 0:  # nothing to launch
-        return grad
-    vec = D % 4 == 0 and dy.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0
+    if n == 0 or D == 0:  # nothing to collapse
+        return torch.zeros((num_rows, D), dtype=dy.dtype, device=dy.device)
+    sms = torch.cuda.get_device_properties(ids.device).multi_processor_count
+    plan = _rows_plan(n, num_rows, D, sms)
+    grad = (torch.zeros if plan.fill else torch.empty)((num_rows, D), dtype=dy.dtype, device=dy.device)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=dy.device)
+    vec = plan.path == "vec" and dy.data_ptr() % 16 == 0  # grad and scratch: the allocator's 512-byte blocks
     with torch.cuda.device(ids.device):
         stream = torch._C._cuda_getCurrentRawStream(ids.device.index)
+        flags = _flags(ids.device, stream, sms * ROWS_CTAS_PER_SM)
         err = _build.lib().run_collapse_rows(ids.data_ptr(), perm.data_ptr(), dy.data_ptr(), grad.data_ptr(),
-                                             n, D, num_rows, int(vec), stream)
+                                             scratch.data_ptr(), flags.data_ptr(), n, D, num_rows, plan.grid,
+                                             int(vec), int(not plan.fill), stream)
     _build.check(err, "run_collapse_rows")
     run_collapse_rows.launches += 1
     return grad
