@@ -144,11 +144,32 @@ Phases, each printing its result on its own line:
     and 2,000,000 rows; 100,000 into one row and into 1,000), each shape held
     as the path's inputs are, with device times against the bound, the plain
     version and ``index_put_``; from 16,384 rows up the kernel writing every
-    row against ``torch.zeros`` and the kernel writing the touched rows.
+    row against ``torch.zeros`` and the kernel writing the touched rows;
+    then, at the item- and user-table shapes, the kernel launched while
+    another stream of the process keeps the card busy (its cooperative
+    launch: the call finishes with a quiet run's bits);
+15. mesh, in a child process after that one (``chip_smoke.py --mesh`` runs
+    it alone, building the SANN world itself): one NCCL rank and a 1x1
+    (data, model) mesh (``core/mesh.py``); bench.py's lookup
+    (bench.py:331-393: a 16,000,000 x 128 f32 table, 16 iterations of
+    65,536 ids) through ``multiget_all_to_all`` (rows bit-equal to
+    ``index_select``, the sum within rtol 1e-6 of the bare gather's, rows/s,
+    bytes/s, ``lookup_vs_bare_gather``, each iteration's kernel time); the
+    hybrid, query-sharded and index-sharded SANN forms at Q=256 against the
+    batch path (oracle parity on 8 queries, launches), ``fetch_cluster_rows``
+    of 12,800 ids, ``sharded_queries_per_s``; ``ShardedServeEngine`` at the
+    step-5 width against ``DeviceHydrationScorer`` (f32 scores, the bf16
+    device selection, R=32, creation times below 1,000 s; the launches of a
+    batch; requests/s); ``search_sharded`` (relevance, recency) on the
+    262,144-doc index against ``search``; GFS's ``feature_block_sharded``
+    against ``feature_block``; then four gloo ranks on this one card
+    (``--mesh-rank``, each its own process): the hybrid form on a 2x2 mesh
+    and the index-sharded form on a 1x4 mesh against the world-1 lists, a
+    4-way multiget of 65,536 ids bit-equal to ``index_select``.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
-updates, embedding training), error and times, and, as the last line,
+updates, embedding training, the mesh layer), error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
 """
@@ -156,6 +177,7 @@ non-zero and prints no result; it needs no network.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -173,6 +195,7 @@ import torch
 from torch.autograd import DeviceType
 
 from the_algorithm_tpu_torch import _build
+from the_algorithm_tpu_torch.core import mesh as meshlib
 from the_algorithm_tpu_torch.core.config import Params, param_scope
 from the_algorithm_tpu_torch.core.decider import Decider
 from the_algorithm_tpu_torch.data import foryou_world, sann_world, tweet_mixer_world
@@ -588,9 +611,47 @@ def phase_collapse_rows_sweep(dev):
             del results
         del ids, perm, dy
         torch.cuda.empty_cache()
+    collapse_rows_beside_a_busy_stream(dev)
     return {label: {k: r[k] for k in ("device_ms", "cold_device_ms", "bound_ms", "plain_device_ms",
                                       "library_device_ms")}
             for label, r in out.items()}
+
+
+def busy_stream(dev, ms: float = 50.0):
+    """Another stream of this process kept busy with f32 products over every
+    SM for about ``ms``; returns it and its work (kept alive)."""
+    side = torch.cuda.Stream(dev)
+    a = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize()
+    work = []
+    with torch.cuda.stream(side):
+        for _ in range(max(1, int(ms / 2))):  # ~2 ms a 4,096³ f32 product on an H100
+            work.append(a @ a)
+    return side, work
+
+
+def collapse_rows_beside_a_busy_stream(dev):
+    """Fault 6: run_collapse_rows' CTAs wait on earlier CTAs' flags, so its
+    grid must be resident at once; the cooperative launch guarantees it. At
+    the item- and user-table shapes, launched while another stream of the
+    process keeps the card busy, the call finishes with a quiet run's bits."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    for N in (2_000_000, 16_384):
+        ids, perm = torch.sort(torch.randperm(N, generator=g, device=dev)[:4096].int(), stable=True)
+        dy = torch.randn((4096, ROWS_D), generator=g, device=dev)
+        quiet = seg_scan.run_collapse_rows(ids, perm, dy, N)
+        torch.cuda.synchronize()
+        side, work = busy_stream(dev)
+        t0 = time.perf_counter()
+        busy = seg_scan.run_collapse_rows(ids, perm, dy, N)
+        still = not side.query()
+        torch.cuda.synchronize()
+        require(torch.equal(busy.view(torch.int32), quiet.view(torch.int32)),
+                f"run_collapse_rows beside a busy stream differs at [{N}, {ROWS_D}]")
+        print(f"kernel run_collapse_rows: 4096 slots into [{N}, {ROWS_D}] launched cooperatively while another stream "
+              f"{'was still busy' if still else 'had finished'} ({len(work)} 4,096³ products): finished in "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms of host clock with a quiet run's bits")
+        del work, quiet, busy
 
 
 # the hydration tables' widths (the_algorithm_tpu/mixers/device_hydration.py:71-102)
@@ -2220,7 +2281,7 @@ def child_main(phase) -> int:
     return 0
 
 
-def phase_apart(flag: str, what: str):
+def phase_apart(flag: str, what: str, *args: str, timeout: int = 900):
     """A phase in a child process on the same card, its output passed on,
     its launches returned. On the card the profiler of a process drops
     events of later sessions after some phases: with the training phase in
@@ -2234,8 +2295,8 @@ def phase_apart(flag: str, what: str):
     session: run before the exact-tier and live phases, or first, it left
     the live fold's session short five times running in both runs that got
     there."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag], capture_output=True, text=True,
-                          timeout=900)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, *args], capture_output=True, text=True,
+                          timeout=timeout)
     sys.stderr.write(proc.stderr)
     lines = proc.stdout.strip().splitlines()
     sys.stdout.write("".join(line + "\n" for line in lines[:-1]))
@@ -3036,6 +3097,492 @@ def phase_embedding_training(dev):
                                                                f"{TM_SHAPE.embed_dim}])"]}
 
 
+# -- the mesh layer (PR 11) ------------------------------------------------------
+#
+# At world size 1 on the card: one NCCL rank, a 1x1 (data, model) mesh, and the
+# sharded paths' entry points: bench.py's lookup (bench.py:331-393) through the
+# all-to-all multiget, the three sharded SANN forms, the sharded serve engine,
+# earlybird's partitioned scan and GFS's worker fan-out. Then the E=4 routing on
+# this one card: four gloo ranks in processes of their own (NCCL refuses two
+# ranks on one device), correctness only.
+LOOKUP_ROWS, LOOKUP_DIM = 16_000_000, 128  # bench.py's 8.19 GB f32 table
+LOOKUP_B, LOOKUP_ITERS = 65_536, 16  # ids an iteration, iterations a run (bench.py's)
+LOOKUP_REPS = 5  # timed runs of the 16 iterations
+LOOKUP_SUM_RTOL = 1e-6  # the 16-iteration f32 sum against the bare gather's: the same rows, summed alike
+MESH_RTOL = 1e-6  # sharded SANN scores against the batch path (the same sums at world 1)
+MESH_SANN_LAUNCHES = {  # one Q=256 batch at world 1: the local accumulate (a fetch and a dedup), the merge's dedup
+    "hybrid": {"run_collapse": 2, "row_gather": 1},
+    "query_sharded": {"run_collapse": 1, "row_gather": 1},  # the multiget's local gather, the accumulate's dedup
+    "sharded": {"run_collapse": 2, "row_gather": 1},
+}
+MESH_SERIAL = 3  # R=32 batches of the sharded serve on the host clock
+GFS_RTOL = 1e-6
+E4_LOOKUP = (1_000_000, 128, 65_536)  # the E=4 multiget: table rows, width, ids
+E4_TIMEOUT = 300
+MESH_TIMEOUT = 420  # the mesh child's limit, inside the script's
+
+
+def counted(fn):
+    """``fn()`` with every kernel's count set to 0 just before and read just
+    after: (its result, the launches it made)."""
+    seg_scan.run_collapse_sorted.launches = gather.row_gather.launches = seg_scan.run_collapse_rows.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches,
+                 "run_collapse_rows": seg_scan.run_collapse_rows.launches}
+
+
+def launch_times_us(fn):
+    """Device time (µs) of each kernel launch in one profiler session of
+    ``fn``, in launch order (copies and fills left out)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    PROFILER["sessions"] += 1
+    return [e.device_time_total for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def mesh_lookup(mesh, dev):
+    """bench.py's bench_lookup at full size through ``multiget_all_to_all``:
+    at world size 1 the exchange is the identity, and each iteration is one
+    row_gather launch of 65,536 rows of 512 B from the 8.19 GB table."""
+    from the_algorithm_tpu_torch.parallel import sharded_table
+
+    t0 = time.perf_counter()
+    table = torch.randn((LOOKUP_ROWS, LOOKUP_DIM), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    ids_all = torch.from_numpy(np.random.default_rng(1).integers(0, LOOKUP_ROWS, (LOOKUP_ITERS, LOOKUP_B),
+                                                                   dtype=np.int64).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    print(f"mesh lookup: [{LOOKUP_ROWS}, {LOOKUP_DIM}] f32 table ({table.numel() * 4 / 1e9:.2f} GB) from a seeded "
+          f"generator on the card, {LOOKUP_ITERS} x {LOOKUP_B} ids (bench.py's draw) in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)")
+    sharded = sharded_table.ShardedTable(table, LOOKUP_ROWS)  # the 1x1 mesh's one block: the table itself
+
+    def run():
+        acc = torch.zeros((), device=dev)
+        for i in range(LOOKUP_ITERS):
+            acc += sharded_table.multiget_all_to_all(mesh, sharded, ids_all[i]).sum(dtype=torch.float32)
+        return acc
+
+    def run_bare():
+        acc = torch.zeros((), device=dev)
+        for i in range(LOOKUP_ITERS):
+            acc += torch.index_select(table, 0, ids_all[i]).sum(dtype=torch.float32)
+        return acc
+
+    acc, launches = counted(run)
+    bare = float(run_bare())
+    require(launches == {"run_collapse": 0, "row_gather": LOOKUP_ITERS, "run_collapse_rows": 0},
+            f"lookup launches {launches}, want one row_gather an iteration")
+    require(abs(float(acc) - bare) <= LOOKUP_SUM_RTOL * abs(bare), f"lookup sum {float(acc)} against {bare}")
+    one = sharded_table.multiget_all_to_all(mesh, sharded, ids_all[0])
+    require(torch.equal(one.view(torch.int32), torch.index_select(table, 0, ids_all[0]).view(torch.int32)),
+            "an iteration's rows differ from index_select")
+    dt, dt_bare = timed_pair(run, run_bare, reps=LOOKUP_REPS)  # ms a run of 16 iterations, CUDA events
+    rows_per_s = LOOKUP_ITERS * LOOKUP_B / (dt / 1e3)
+    moved = LOOKUP_ITERS * LOOKUP_B * LOOKUP_DIM * 4 * 2  # bench.py's count: row read + output write
+    print(f"mesh lookup: 16-iteration sum {float(acc):.6g} within rtol {LOOKUP_SUM_RTOL} of the bare gather's "
+          f"{bare:.6g}; an iteration's rows bit-equal to index_select; launches a run {launches}")
+    print(f"mesh lookup: {rows_per_s:.4g} rows/s, {moved / (dt / 1e3) / 1e9:.1f} GB/s ({moved / 1e9:.2f} GB a run "
+          f"in {dt:.3f} ms, CUDA events); bare index_select {dt_bare:.3f} ms: lookup_vs_bare_gather "
+          f"{dt_bare / dt:.3f}")
+    # each iteration's gather alone: 16 row_gather launches, then 16 index_selects
+    k_us = launch_times_us(lambda: [gather.row_gather(ids_all[i], table) for i in range(LOOKUP_ITERS)])
+    b_us = launch_times_us(lambda: [torch.index_select(table, 0, ids_all[i]) for i in range(LOOKUP_ITERS)])
+    bound = bound_ms(LOOKUP_B * LOOKUP_DIM * 4 * 2)
+    print(f"mesh lookup: each iteration's row_gather device time (µs) {[round(x, 1) for x in k_us]}; index_select "
+          f"{[round(x, 1) for x in b_us]}; bound (65,536 x 512 B read + written) {bound * 1e3:.1f} µs: the kernel at "
+          f"{100 * bound * 1e3 / np.mean(k_us):.0f}% of it on the mean (random 512-B reads from an 8 GB table are "
+          f"transaction-bound)" if k_us else "mesh lookup: the profiler saw no kernel launch")
+    timing = time_gather(ids_all[0], (table,), f"mesh lookup: {LOOKUP_B} of {LOOKUP_ROWS} x 512 B rows (bench.py's)")
+    del table, sharded, one
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
+def same_lists(got, want, what):
+    """Two [Q, X] result lists (tensors) the same up to near-ties."""
+    return check_same_ranking(got[0].cpu().numpy(), got[1].cpu().numpy(), want[0].cpu().numpy(),
+                              want[1].cpu().numpy(), MESH_RTOL, 0.0, what)
+
+
+def mesh_sann(mesh, world):
+    """The three sharded SANN forms and the cluster-row multiget at world
+    size 1, against the batch path; returns their launches and results."""
+    shape, _, _, index_np, q_ids, q_scores, index, sources = world
+    cfg = ann.SimClustersANNConfig(max_scan_clusters=shape.N, max_top_tweets_per_cluster=shape.M,
+                                   max_num_results=shape.X, scoring_algorithm=ScoringAlgorithm.COSINE)
+    want = ann.get_tweet_candidates_batch(index, sources, cfg)
+    local = ann.shard_index(mesh, index)
+    forms = {"hybrid": lambda: ann.get_tweet_candidates_hybrid(mesh, local, sources, cfg),
+             "query_sharded": lambda: ann.get_tweet_candidates_query_sharded(mesh, local, sources, cfg),
+             "sharded": lambda: ann.get_tweet_candidates_sharded(mesh, local, sources, cfg)}
+    launches, results = {}, {}
+    for name, fn in forms.items():
+        got, n = counted(fn)
+        n = {k: v for k, v in n.items() if k != "run_collapse_rows"}
+        require(n == MESH_SANN_LAUNCHES[name], f"SANN {name} launches {n}, want {MESH_SANN_LAUNCHES[name]}")
+        moved = same_lists(got, want, f"SANN {name} against the batch path")
+        got_np = got[0].cpu().numpy()
+        hits = total = 0
+        for q in range(8):
+            ref = {t for t, _ in retrieval.approximate_cosine_similarity_reference(
+                *index_np, q_ids[q], q_scores[q], max_results=K_RECALL, algorithm=ScoringAlgorithm.COSINE)}
+            hits += len(ref & set(got_np[q, :K_RECALL].tolist()))
+            total += len(ref)
+        require(hits >= 0.99 * total, f"SANN {name} oracle parity {hits / total} < 0.99")
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        results[name] = got
+        print(f"mesh sann: {name} Q={shape.Q} on the 1x1 mesh: the batch path's lists ({moved} ranks hold another "
+              f"id, within near-ties; scores rtol {MESH_RTOL}), oracle parity {hits / total:.4f} on 8 queries, "
+              f"launches {n}")
+    # the merge's dedup at its shape: at world 1 the gathered partials are the local accumulate's
+    head = SparseEmbedding(sources.ids[:, :shape.N], sources.scores[:, :shape.N])
+    partials = ann._owned_partials(mesh, local, head, cfg, None, None)
+    time_collapse(retrieval.sort_by_id(*partials), f"the sharded SANN merge's dedup (Q={shape.Q}, world 1)")
+    del partials
+    src = sparse.truncate(sources, shape.N)
+    cids = torch.where(src.valid_mask(), src.ids, 0).reshape(-1)  # the batch's Q·N cluster ids
+    rows, n = counted(lambda: ann.fetch_cluster_rows(mesh, local, cids))
+    require(all(torch.equal(r.view(torch.int32), torch.index_select(t, 0, cids).view(torch.int32))
+                for r, t in zip(rows, index)), "fetch_cluster_rows differs from index_select")
+    require(n["row_gather"] == 1 and n["run_collapse"] == 0, f"fetch_cluster_rows launches {n}")
+    launches["row_gather"] += n["row_gather"]
+    print(f"mesh sann: fetch_cluster_rows of {cids.numel()} ids: bit-equal to index_select, launches {n}")
+    qps = {}
+    for name in ("sharded", "hybrid"):
+        forms[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            forms[name]()
+        torch.cuda.synchronize()
+        qps[name] = shape.Q * 20 / (time.perf_counter() - t0)
+    print(f"mesh sann: sharded_queries_per_s {qps['sharded']:.1f} (bench.py's key: the index-sharded form), hybrid "
+          f"{qps['hybrid']:.1f} queries/s at Q={shape.Q} (host clock, 20 batches; not a benchmark)")
+    return launches, {k: tuple(x.cpu().numpy() for x in v) for k, v in results.items()}, tuple(
+        x.cpu().numpy() for x in want)
+
+
+def mesh_serve(mesh, dev, sann, cand):
+    """ShardedServeEngine on the 1x1 mesh at bench.py's For You width
+    against DeviceHydrationScorer on the same card and tables: f32 scores
+    (score_columnar, score_requests) and the bf16 device selection, on R=32
+    requests with creation times below SPREAD_TS s; launches of one batch and
+    requests/s on the host clock. Returns the launches and the tables."""
+    from the_algorithm_tpu_torch.mixers import sharded_serve
+    from the_algorithm_tpu_torch.pipeline.component import Candidate
+
+    sann_ids, sann_scores = sann
+    fy_world, index, graph = cand
+    t0 = time.perf_counter()
+    world = wh.synthetic_world(**FY_WORLD, device=dev)
+    tables, fns, res = dh.build_from_world(world, world.pop("device_spec"))
+    F = fs.total_width(fs.WIDE_SCHEMA)
+    ref = masknet.MaskNet(masknet.MaskNetConfig(num_features=F, **FY_MODEL, dtype="float32"), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    m16 = masknet.MaskNet(masknet.MaskNetConfig(num_features=F, **FY_MODEL, dtype="bfloat16"), device=dev)
+    m16.load_state_dict(ref.state_dict())
+    weights = masknet.DEFAULT_HEAD_WEIGHTS
+    half = sann_ids.shape[0] // 2
+    s = fy_world.shape
+    sources = [bf.PrecomputedBatchSource(sann_ids[:half], sann_scores[:half]),
+               bf.EarlybirdBatchSource(index, foryou_world.NOW, max_results=EB_RESULTS),
+               bf.UtegBatchSource(graph, lambda u: fy_world.seeds[u % s.num_users], max_results=UTEG_RESULTS),
+               bf.PrecomputedBatchSource(sann_ids[half:], sann_scores[half:], name="TweetMixer")]
+    follows = [[int(a) for a in row if a != PAD_ID] for row in fy_world.follows]
+    queries = [ForYouQuery(user_id=u, followed_authors=follows[u % len(follows)], max_results=FY_TOP_K,
+                           now=foryou_world.NOW) for u in range(FY_R)]
+
+    def single(model, dtype, k):
+        return dh.DeviceHydrationScorer(tables, fns, res, model, weights, pad_b=FY_PB, compute_dtype=dtype,
+                                        select_top_k=k)
+
+    lift = spread_lift(bf.ColumnsLift(FY_WORLD["num_authors"], foryou_world.NOW))
+    engine = bf.BatchedForYouEngine(batch_sources=sources, scorer=single(ref, torch.float32, None),
+                                    head_names=masknet.DEFAULT_HEAD_NAMES, lift=lift, max_age_s=10 ** 9)
+    _, cols = engine.columns(queries)
+    eng32 = sharded_serve.ShardedServeEngine(tables, fns, res, ref, weights, mesh, pad_b=FY_PB,
+                                             compute_dtype=torch.float32)
+    eng16 = sharded_serve.ShardedServeEngine(tables, fns, res, m16, weights, mesh, pad_b=FY_PB,
+                                             compute_dtype=torch.bfloat16, select_top_k=FY_TOP_K)
+    torch.cuda.synchronize()
+    print(f"mesh serve: For You hydration world (users {FY_WORLD['num_users']}, {F} columns) and two 1x1-mesh "
+          f"engines ({len(eng32._packs)} packed routes + the aggregate pack) built in {time.perf_counter() - t0:.1f} s "
+          f"(set-up); R={FY_R} requests of {sum(n for _, _, n in cols)} candidates, creation times below {SPREAD_TS} s")
+
+    got, n32 = counted(lambda: eng32.score_columnar(cols))
+    want = single(ref, torch.float32, None).score_columnar(cols)
+    err = 0.0
+    for (gp, gc), (wp, wc) in zip(got, want):
+        np.testing.assert_allclose(gp, wp, rtol=FY_RTOL, atol=FY_ATOL)
+        np.testing.assert_allclose(gc, wc, rtol=FY_RTOL, atol=0)
+        err = max(err, float(np.max(np.abs(gc - wc) / np.abs(wc))))
+    # a launch for each route's 16-byte-row tables and one for its others (gather.multiget)
+    packs = [*eng32._packs.values(), {"av": eng32._agg.values, "al": eng32._agg.last_ts}]
+    routes = sum(len(gather.launch_groups({k: v.reshape(v.shape[0], -1) for k, v in p.items()})) for p in packs)
+    require(n32 == {"run_collapse": 0, "row_gather": routes, "run_collapse_rows": 0},
+            f"sharded serve launches {n32}, want {routes}: the packed routes' gathers")
+    names = fs.candidate_source_names()
+    batch = []
+    for q, c, n in cols:
+        feats = [k for k in c if k not in ("ids", "source_idx", "source_hash")]
+        batch.append((q, [Candidate(id=int(c["ids"][i]), source=names[int(c["source_idx"][i])]
+                                    if "source_idx" in c and c["source_idx"][i] >= 0 else None,
+                                    features={k: c[k][i].item() for k in feats}) for i in range(n)]))
+    got_r = eng32.score_requests(batch)
+    want_r = single(ref, torch.float32, None).score_requests(batch)
+    for (gp, gc), (wp, wc) in zip(got_r, want_r):
+        np.testing.assert_allclose(gp, wp, rtol=FY_RTOL, atol=FY_ATOL)
+        np.testing.assert_allclose(gc, wc, rtol=FY_RTOL, atol=0)
+    sel, n16 = counted(lambda: eng16.select_columnar(cols))
+    want_sel = single(m16, torch.bfloat16, FY_TOP_K).select_columnar(cols)
+
+    def as_arrays(out):
+        ids, scores = np.full((FY_R, FY_TOP_K), PAD_ID, np.int64), np.zeros((FY_R, FY_TOP_K))
+        for r, (i, sc, _) in enumerate(out):
+            ids[r, :len(i)], scores[r, :len(i)] = i, sc
+        return ids, scores
+
+    moved = check_same_ranking(*as_arrays(sel), *as_arrays(want_sel), SELECT_RTOL, 0.0,
+                               "the sharded engine's device selection")
+    print(f"mesh serve: score_columnar and score_requests (f32) against DeviceHydrationScorer on the card: every "
+          f"candidate's score within rel {err:.3g} (rtol {FY_RTOL}); bf16 select_columnar top-{FY_TOP_K}: the "
+          f"scorer's selection ({moved} ranks hold another id, within near-ties); launches a batch {n32} (f32), "
+          f"{n16} (bf16 select)")
+    rps = {}
+    for name, fn in (("sharded engine", lambda: eng16.select_columnar(cols)),
+                     ("DeviceHydrationScorer", lambda: single(m16, torch.bfloat16, FY_TOP_K).select_columnar(cols))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_SERIAL):
+            fn()
+        torch.cuda.synchronize()
+        rps[name] = FY_R * MESH_SERIAL / (time.perf_counter() - t0)
+    print("mesh serve: bf16 select_columnar at R=32, requests/s (host clock; not a benchmark): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rps.items()))
+    # each packed route's owner gather at its shape against index_select
+    calls, routed = [], sharded_serve.route_and_gather
+
+    def recording(group, ids, **kw):
+        calls.append((group, ids))
+        return routed(group, ids, **kw)
+
+    sharded_serve.route_and_gather = recording
+    try:
+        eng32.score_columnar(cols)
+    finally:
+        sharded_serve.route_and_gather = routed
+    route_of = {id(p): r for r, p in eng32._packs.items()}
+    for group, ids in calls:
+        flat = {k: t.reshape(t.shape[0], -1) for k, t in group.items()}
+        for names in gather.launch_groups(flat):
+            tabs = tuple(flat[k] for k in names)
+            label = (f"sharded serve route {route_of.get(id(group), 'of the aggregate pack')} ({', '.join(names)}): "
+                     f"{ids.numel()} rows x {'+'.join(str(t.shape[1] * t.element_size()) for t in tabs)} B of "
+                     f"[{tabs[0].shape[0]}] rows")
+            time_gather(ids.clamp(0, tabs[0].shape[0] - 1).contiguous(), tabs, label)
+    del eng32, eng16, engine, ref, m16
+    torch.cuda.empty_cache()
+    return n16, tables, cols
+
+
+def mesh_search(mesh, cand, tables, cols):
+    """earlybird's search_sharded on the candidate world's 262,144-doc index
+    (relevance and recency) against ``search``, and GFS's worker fan-out
+    over ``shard_tables(..., 1)`` against ``feature_block``."""
+    from the_algorithm_tpu_torch.features import graph_features as gf
+
+    _, index, _ = cand
+    query = foryou_world.in_network_query().to(index.tokens.device)
+    local = earlybird.shard_index(mesh, index)
+    for rank_by in ("relevance", "recency"):
+        want = earlybird.search(index, query, max_results=EB_RESULTS, rank_by=rank_by)
+        got = earlybird.search_sharded(mesh, local, query, max_results=EB_RESULTS, rank_by=rank_by)
+        require(torch.equal(got[0], want[0]) and torch.allclose(got[1], want[1], rtol=MESH_RTOL, atol=0),
+                f"search_sharded ({rank_by}) differs from search")
+        require(int((want[0] != PAD_ID).sum()) > 0, f"search ({rank_by}) found nothing")
+    print(f"mesh search: search_sharded on the {index.capacity}-doc index, relevance and recency, top {EB_RESULTS}: "
+          f"search's ids, scores within rtol {MESH_RTOL}")
+    graph = gf.GraphTables(tables.gfs_neighbors)
+    t0 = time.perf_counter()
+    sharded = gf.shard_tables(graph, 1)
+    build_s = time.perf_counter() - t0
+    cands = torch.from_numpy(np.asarray(cols[0][1]["author_id"][:cols[0][2]], np.int32)).to(index.tokens.device)
+    for uid in (5, 1234):
+        want = gf.feature_block(graph, uid, cands)
+        got = gf.feature_block_sharded(mesh, meshlib.shard_rows(sharded, mesh), uid, cands)
+        for k in want:
+            exact = not k.endswith("_normalized")
+            require(torch.equal(got[k], want[k]) if exact else torch.allclose(got[k], want[k], rtol=GFS_RTOL, atol=0),
+                    f"feature_block_sharded {k} differs from feature_block")
+    print(f"mesh search: GFS feature_block_sharded over shard_tables(..., 1) ({tuple(sharded.shape)}, built on the "
+          f"host in {build_s:.1f} s) for {cands.numel()} candidate authors of 2 users: feature_block's counts exactly, "
+          f"normalized within rtol {GFS_RTOL}")
+
+
+def save_world(world, root):
+    """The SANN world's index and queries as .npy files in ``root``, for the
+    mesh child and its E=4 ranks."""
+    shape, _, _, index_np, q_ids, q_scores, _, _ = world
+    for name, a in zip(("tweet_ids", "scores", "timestamps", "q_ids", "q_scores"), (*index_np, q_ids, q_scores)):
+        np.save(os.path.join(root, f"{name}.npy"), a)
+    with open(os.path.join(root, "shape.json"), "w") as f:
+        json.dump(dataclasses.asdict(shape), f)
+
+
+def load_world(root, dev):
+    """:func:`build_world`'s tuple from :func:`save_world`'s files (the
+    corpus left out); ``dev`` None: the index as numpy memory maps only."""
+    shape = sann_world.WorldShape(**json.load(open(os.path.join(root, "shape.json"))))
+    # copy-on-write maps: torch takes only writable arrays
+    index_np = tuple(np.load(os.path.join(root, f"{n}.npy"), mmap_mode="c")
+                     for n in ("tweet_ids", "scores", "timestamps"))
+    q_ids, q_scores = (np.load(os.path.join(root, f"{n}.npy")) for n in ("q_ids", "q_scores"))
+    if dev is None:
+        return shape, None, None, index_np, q_ids, q_scores, None, None
+    index = ClusterTweetIndex(*(torch.from_numpy(np.asarray(a)).to(dev) for a in index_np))
+    sources = SparseEmbedding(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_scores).to(dev))
+    return shape, None, None, index_np, q_ids, q_scores, index, sources
+
+
+def mesh_rank(rank: int, root: str) -> int:
+    """One of the E=4 check's ranks (``chip_smoke.py --mesh-rank r dir``): a
+    gloo rank on cuda:0, its blocks of the SANN index, the hybrid form on a
+    2x2 mesh and the index-sharded form on a 1x4 mesh, and a multiget of
+    65,536 ids from a 1,000,000 x 128 table split 4 ways; its results into
+    ``root``. If gloo refuses CUDA tensors, it says so there instead."""
+    import torch.distributed as dist
+
+    from the_algorithm_tpu_torch.parallel import sharded_table
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    _build.lib()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(root, 'store4')}", rank=rank, world_size=4)
+    out = os.path.join(root, f"rank{rank}.npz")
+    try:
+        try:  # gloo and CUDA tensors: the two collectives the mesh layer's exchange and gathers take
+            dist.all_to_all_single(torch.empty(4, device=dev), torch.arange(4.0, device=dev))
+            meshlib._all_gather_into(torch.empty(8, device=dev), torch.arange(2.0, device=dev))
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — the reason is the result
+            np.savez(out, unsupported=np.asarray(f"{type(e).__name__}: {e}"))
+            return 0
+        m22 = meshlib.make_mesh(meshlib.MeshSpec(data=2, model=2))
+        m14 = meshlib.make_mesh(meshlib.MeshSpec(data=1, model=4))
+        shape, _, _, index_np, q_ids, q_scores, _, _ = load_world(root, None)
+        cfg = ann.SimClustersANNConfig(max_scan_clusters=shape.N, max_top_tweets_per_cluster=shape.M,
+                                       max_num_results=shape.X, scoring_algorithm=ScoringAlgorithm.COSINE)
+        res = {}
+        for name, m in (("hybrid", m22), ("sharded", m14)):
+            local = ClusterTweetIndex(*(meshlib.shard_rows(a, m, pad=False) for a in index_np))
+            over = (meshlib.DATA_AXIS,) if name == "hybrid" else ()
+            src = SparseEmbedding(*(meshlib.shard_rows(a, m, over=over, pad=False) for a in (q_ids, q_scores)))
+            fn = ann.get_tweet_candidates_hybrid if name == "hybrid" else ann.get_tweet_candidates_sharded
+            ids, scores = fn(m, local, src, cfg)
+            res[f"{name}_ids"], res[f"{name}_scores"] = ids.cpu().numpy(), scores.cpu().numpy()
+            res[f"{name}_block"] = np.asarray(m.coord(meshlib.DATA_AXIS) if over else 0)
+            del local
+        rows, width, B = E4_LOOKUP
+        table = torch.randn((rows, width), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+        ids = torch.from_numpy(np.random.default_rng(3).integers(0, rows, B).astype(np.int32))
+        block = meshlib.shard_rows(ids, m14, pad=False).to(dev)
+        t = sharded_table.ShardedTable(meshlib.shard_rows(table, m14), rows)
+        got, n = counted(lambda: sharded_table.multiget_all_to_all(m14, t, block))
+        res["multiget_equal"] = np.asarray(torch.equal(got.view(torch.int32),
+                                                       torch.index_select(table, 0, block).view(torch.int32)))
+        res["multiget_row_gather"] = np.asarray(n["row_gather"])
+        np.savez(out, **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_four_ranks(root, results):
+    """The E=4 routing on this one card: four gloo ranks (each its own
+    process on cuda:0) against the world-1 results. Correctness only: the
+    exchange crosses the host, so no time of it is a rate."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r), root])
+             for r in range(4)]
+    try:
+        codes = [p.wait(timeout=E4_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(codes == [0, 0, 0, 0], f"an E=4 rank failed: exit codes {codes}")
+    outs = [np.load(os.path.join(root, f"rank{r}.npz")) for r in range(4)]
+    if "unsupported" in outs[0].files:
+        print(f"mesh E=4: dropped: gloo refuses CUDA tensors on this torch ({outs[0]['unsupported']}); E>1 routing "
+              "is held on the CPU by the tests/test_torch_sharded_*.py and test_torch_ann_sharded.py files")
+        return False
+    moved = 0
+    for r, o in enumerate(outs):
+        for name in ("hybrid", "sharded"):
+            want_ids, want_scores = results[name]
+            if name == "hybrid":
+                half = want_ids.shape[0] // 2
+                b = int(o["hybrid_block"])
+                want_ids, want_scores = want_ids[b * half:(b + 1) * half], want_scores[b * half:(b + 1) * half]
+            moved += check_same_ranking(o[f"{name}_ids"], o[f"{name}_scores"], want_ids, want_scores, MESH_RTOL,
+                                        0.0, f"E=4 rank {r} {name}")
+        require(bool(o["multiget_equal"]) and int(o["multiget_row_gather"]) == 1,
+                f"E=4 rank {r}: multiget rows differ from index_select or not one row_gather launch")
+    print(f"mesh E=4: four gloo ranks on the one card: the hybrid form on a 2x2 mesh (half the index a rank) and "
+          f"the index-sharded form on a 1x4 mesh (a quarter) give every rank the world-1 lists ({moved} ranks hold "
+          f"another id, within near-ties; scores rtol {MESH_RTOL}); a multiget of {E4_LOOKUP[2]} ids from a "
+          f"{E4_LOOKUP[0]} x {E4_LOOKUP[1]} table split 4 ways bit-equal to index_select, one row_gather launch a "
+          f"rank; {time.perf_counter() - t0:.1f} s (correctness only)")
+    return True
+
+
+def phase_mesh(dev, root=None):
+    """The mesh layer's serving half at world size 1 (NCCL), then the E=4
+    routing over gloo on this one card. ``root``: a directory holding the
+    SANN world (:func:`save_world`); without it the world is built here.
+    Returns the path's launches."""
+    import torch.distributed as dist
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        if root is None:
+            world = build_world(dev)
+            save_world(world, tmp)
+            root = tmp
+        else:
+            world = load_world(root, dev)
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store1')}", rank=0, world_size=1)
+        try:
+            mesh = meshlib.make_mesh(meshlib.MeshSpec(data=1, model=1))
+            print(f"mesh: one NCCL rank, a 1x1 (data, model) mesh on {mesh.device}")
+            lookup, timing = mesh_lookup(mesh, dev)
+            sann, results, (want_ids, want_scores) = mesh_sann(mesh, world)
+            s = foryou_world.FULL
+            fy = foryou_world.build(s, users=CAND_R)
+            cand = (fy, foryou_world.earlybird_index(fy, dev), foryou_world.engagement_graph(fy, dev))
+            serve, tables, cols = mesh_serve(mesh, dev, (want_ids, want_scores), cand)
+            mesh_search(mesh, cand, tables, cols)
+            del tables, cand
+        finally:
+            dist.destroy_process_group()
+        del world
+        torch.cuda.empty_cache()
+        e4 = mesh_four_ranks(root, results)
+    launches = {k: lookup.get(k, 0) + sann.get(k, 0) + serve.get(k, 0) for k in ("run_collapse", "row_gather",
+                                                                              "run_collapse_rows")}
+    require(launches["run_collapse"] > 0 and launches["row_gather"] > 0, f"mesh path launches {launches}")
+    print(f"mesh: launches of the path {launches} (the lookup's run {lookup}, the SANN forms and fetch {sann}, one "
+          f"sharded serve batch {serve}); E=4 check {'run' if e4 else 'dropped'}")
+    return {"launches": launches, "row_gather": timing}
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -3059,6 +3606,10 @@ def main() -> int:
     by_path["embedding_training"] = emb["launches"]
     phase_apart("--collapse-rows", "run_collapse_rows sweep")
     kernels["run_collapse_rows"] = emb["run_collapse_rows"]
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        save_world(world, root)  # the SANN world for the mesh child and its E=4 ranks
+        by_path["mesh"] = phase_apart("--mesh", "mesh", root, timeout=MESH_TIMEOUT)["launches"]
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
@@ -3081,5 +3632,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone,
-                    "--embedding-training": phase_embedding_training, "--collapse-rows": phase_collapse_rows_sweep}
+                    "--embedding-training": phase_embedding_training, "--collapse-rows": phase_collapse_rows_sweep,
+                    "--mesh": lambda dev: phase_mesh(dev, sys.argv[2] if sys.argv[2:] else None)}
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(child_main(CHILD_PHASES[sys.argv[1]]) if sys.argv[1:] and sys.argv[1] in CHILD_PHASES else main())

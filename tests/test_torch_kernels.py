@@ -482,6 +482,41 @@ def test_run_collapse_rows_kernel_matches_plain(cuda_device, n, N, draw, D, offs
     assert (got.cpu().numpy()[terms[:, 0] == 0] == 0.0).all()
 
 
+def busy_stream(device, ms: float = 50.0):
+    """A second stream of this process kept busy with f32 products over
+    every SM for about ``ms`` (its work is returned, so it stays alive)."""
+    side = torch.cuda.Stream(device)
+    a = torch.randn(4096, 4096, device=device)
+    torch.cuda.synchronize(device)
+    out = []
+    with torch.cuda.stream(side):
+        for _ in range(max(1, int(ms / 2))):  # ~2 ms a 4,096³ product at f32
+            out.append(a @ a)
+    return side, out
+
+
+@pytest.mark.parametrize("n,N,draw,D,offset", COLLAPSE_ROWS_CASES)
+def test_run_collapse_rows_beside_a_busy_stream(cuda_device, n, N, draw, D, offset):
+    """Fault 6: the kernel's CTAs wait on earlier CTAs' flags, so all of its
+    grid must be resident at once. The cooperative launch guarantees that:
+    launched while another stream of the process fills the card, the call
+    finishes and gives the bits of a quiet run."""
+    rng = np.random.default_rng(n + N + D)
+    sorted_ids, perm, _ = _collapse_rows_case(rng, n, N, draw)
+    buf = torch.empty(n * D + offset, device=cuda_device)
+    dy = buf[offset:].view(n, D)
+    dy.copy_(torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32)))
+    args = (torch.from_numpy(sorted_ids).to(cuda_device), torch.from_numpy(perm).to(cuda_device), dy, N)
+    quiet = seg_scan.run_collapse_rows(*args)
+    torch.cuda.synchronize()
+    side, work = busy_stream(cuda_device)
+    busy = seg_scan.run_collapse_rows(*args)  # the default stream, beside the products
+    assert not side.query()  # the other stream was still busy at the launch
+    torch.cuda.synchronize()
+    assert torch.equal(busy.view(torch.int32), quiet.view(torch.int32))
+    del work
+
+
 @pytest.mark.parametrize("n,N,draw", [(4096, 2_000_000, "distinct"), (4096, 6, "runs"), (5000, 100, "dropped")])
 def test_run_collapse_rows_writes_zeros_over_dirty_memory(cuda_device, monkeypatch, n, N, draw):
     """The kernel writes every row, the untouched ones as 0.0, whatever the

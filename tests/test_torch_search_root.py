@@ -85,9 +85,19 @@ def test_paginate_matches(page_size):
         np.testing.assert_allclose(scores, jscores, rtol=RTOL, atol=ATOL)
 
 
-def test_a_partitioned_tier_is_refused_not_scanned_unsharded():
+def test_a_partitioned_tier_is_refused_not_scanned_unsharded(monkeypatch):
+    """A tier with a mesh goes through the partition fan-out (``search_sharded``,
+    held to JAX's in tests/test_torch_sharded_search.py), never the
+    single-index scan."""
     _, tier = _tier_pair("sharded", [(1, 10)], (0, 100))
     tier.mesh = object()
     _, q = _queries(0, 100)
-    with pytest.raises(NotImplementedError):
-        rt.SuperRoot([tier]).search(q, max_results=4)
+    seen = []
+
+    def partitioned(mesh, index, query, *, max_results, **kw):
+        seen.append(mesh)
+        return eb.search(index, query, max_results=max_results, **kw)
+
+    monkeypatch.setattr(eb, "search_sharded", partitioned)
+    ids, _, _ = rt.SuperRoot([tier]).search(q, max_results=4)
+    assert seen == [tier.mesh] and ids.tolist() == [1]

@@ -1,0 +1,320 @@
+"""What each gloo rank of the mesh tests computes (tests/torch_mesh_ranks.py).
+
+One function per test file. A function takes the inputs the test pickled
+(numpy arrays and plain values), builds its meshes over the ranks of the
+group — ``make_mesh`` on the CPU — runs the port's sharded functions on
+this rank's blocks, and returns this rank's local outputs as numpy, keyed
+by case. Imports no JAX: it runs in the rank processes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from the_algorithm_tpu_torch.core import mesh as meshlib
+from the_algorithm_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, MeshSpec, make_mesh, shard_rows
+
+# (data, model) shapes a file's cases run on, over the first data·model ranks
+SHAPES = ((1, 4), (2, 2), (1, 2), (1, 1))
+
+
+def build_meshes(shapes=SHAPES):
+    """{(data, model): this rank's Mesh, or None where the rank is outside
+    it}. Every rank builds every mesh: making one is collective."""
+    out = {}
+    for d, m in shapes:
+        try:
+            out[(d, m)] = make_mesh(MeshSpec(data=d, model=m), ranks=range(d * m), device_type="cpu")
+        except ValueError:
+            out[(d, m)] = None
+    return out
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_np(v) for v in x)
+    return x
+
+
+def _error(fn):
+    """The ValueError text ``fn()`` raises, or None."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+# -- tests/test_torch_mesh.py ---------------------------------------------------
+
+
+def mesh(inputs):
+    """Layout, coordinates and each collective on every mesh shape."""
+    meshes = build_meshes()
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    for shape, m in meshes.items():
+        if m is None:
+            continue
+        key = f"{shape[0]}x{shape[1]}"
+        x = torch.arange(6, dtype=torch.int32).reshape(2, 3) + 100 * rank
+        out[key] = {
+            "coord": (m.coord(DATA_AXIS), m.coord(MODEL_AXIS)),
+            "shape": (m.shape[DATA_AXIS], m.shape[MODEL_AXIS]),
+            "model_ranks": dist.get_process_group_ranks(m.group(MODEL_AXIS)),
+            "data_ranks": dist.get_process_group_ranks(m.group(DATA_AXIS)),
+            "gather_model_0": _np(m.all_gather(x, MODEL_AXIS, dim=0)),
+            "gather_model_1": _np(m.all_gather(x, MODEL_AXIS, dim=1)),
+            "gather_data_1": _np(m.all_gather(x, DATA_AXIS, dim=-1)),
+            "psum_model": _np(m.psum(x, MODEL_AXIS)),
+            "psum_data": _np(m.psum(x.float(), DATA_AXIS)),
+            "all_to_all": _np(m.all_to_all(torch.arange(m.shape[MODEL_AXIS] * 2).reshape(-1, 2) + 10 * rank,
+                                           MODEL_AXIS)),
+            "rows_model": _np(shard_rows(inputs["rows"], m)),
+            "rows_joint": _np(shard_rows(inputs["rows"], m, over=(DATA_AXIS, MODEL_AXIS))),
+            "rows_axis1": _np(shard_rows(inputs["rows"], m, axis=1)),
+            "no_pad": _error(lambda: shard_rows(inputs["rows"][:7], m, pad=False, what="batch")),
+        }
+        with meshlib.local_mesh(m):
+            out[key]["global_is_local"] = meshlib.get_mesh() is m
+    out["no_card"] = None
+    if not torch.cuda.is_available():
+        try:
+            make_mesh(MeshSpec(data=1, model=dist.get_world_size()))
+        except RuntimeError as e:
+            out["no_card"] = str(e)
+    return out
+
+
+# -- tests/test_torch_sharded_table.py ------------------------------------------
+
+
+def sharded_table(inputs):
+    from the_algorithm_tpu_torch.parallel import distributed_topk
+    from the_algorithm_tpu_torch.parallel import sharded_table as st
+
+    meshes = build_meshes()
+    out = {}
+    for shape, m in meshes.items():
+        if m is None:
+            continue
+        key = f"{shape[0]}x{shape[1]}"
+        r = {}
+        r["create"] = _np(st.create(m, 16, 8).local)
+        r["create_padded"] = _np(st.create(m, 18, 4, init=inputs["small"]).local)
+        t = st.create(m, 32, 8, init=inputs["data32"])
+        r["lookup"] = _np(st.lookup(m, t, torch.from_numpy(inputs["lookup_ids"])))
+        r["onehot"] = _np(st.lookup_onehot_psum(m, t, torch.from_numpy(inputs["onehot_ids"])))
+        r["onehot_rows"] = _error(lambda: st.lookup_onehot_psum(m, st.create(m, 18, 4), torch.zeros(2, dtype=torch.int32)))
+        t16 = st.create(m, 16, 4, init=inputs["base16"])
+        r["scatter_add"] = _np(st.scatter_add(m, t16, torch.from_numpy(inputs["scatter_ids"]),
+                                              torch.from_numpy(inputs["scatter_updates"])).local)
+        r["row_decay"] = _np(st.row_decay(t16, 0.5).local)
+        r["topk"] = _np(distributed_topk.sharded_topk(
+            m, shard_rows(inputs["topk_scores"], m, axis=1), shard_rows(inputs["topk_payload"], m, axis=1), 8))
+        items = shard_rows(inputs["items"], m)
+        query = torch.from_numpy(inputs["query"])
+        r["argtopk"] = _np(distributed_topk.sharded_argtopk_batched(m, lambda s: s @ query, items, 5))
+        t64 = st.create(m, 64, 8, init=inputs["data64"])
+        for case in ("uniform", "skewed", "clamped", "repeats"):
+            ids = shard_rows(inputs[f"{case}_ids"], m, pad=False, what="batch")
+            r[case] = _np(st.lookup_all_to_all(m, t64, ids, return_overflow=True))
+        ids = shard_rows(inputs["overflow_ids"], m, pad=False, what="batch")
+        r["overflow"] = _np(st.lookup_all_to_all(m, t64, ids, capacity=2, return_overflow=True))
+        tables = {"scores": shard_rows(inputs["pytree_scores"], m), "ids": shard_rows(inputs["pytree_ids"], m)}
+        r["pytree"] = _np(st.multiget_all_to_all(m, tables, shard_rows(inputs["pytree_req"], m, pad=False)))
+        tc = st.create(m, 64, 16, init=inputs["data64x16"])
+        joint = shard_rows(inputs["joint_ids"], m, over=(DATA_AXIS, MODEL_AXIS), pad=False, what="batch")
+        r["collective"] = _np(st.lookup_collective(tc, joint, m))
+        r["batch_error"] = _error(lambda: shard_rows(inputs["uniform_ids"][:-1], m, pad=False, what="batch"))
+        r["rows_error"] = _error(lambda: st.multiget_all_to_all(m, st.create(m, 18, 4), torch.zeros(
+            2, dtype=torch.int32)))
+        out[key] = r
+    return out
+
+
+# -- tests/test_torch_ann_sharded.py --------------------------------------------
+
+# (form, variant) → the config fields and options the case runs with, and the
+# mesh shapes it runs on (tests/test_torch_ann_sharded.py holds the JAX side)
+ANN_CASES = {
+    ("index", "cosine"): (dict(), {}, ("1x4", "2x2", "1x2", "1x1")),
+    ("index", "dot_window"): (dict(scoring_algorithm="DOT_PRODUCT"), {"now": True}, ("1x4",)),
+    ("index", "log_cosine"): (dict(scoring_algorithm="LOG_COSINE"), {}, ("2x2",)),
+    ("index", "no_source_norm"): (dict(scoring_algorithm="COSINE_NO_SOURCE_NORM", min_score=0.2), {}, ("1x2",)),
+    ("index", "few_partials"): (dict(), {"partials_per_shard": 24}, ("1x4", "2x2")),
+    ("query", "cosine_window"): (dict(), {"now": True}, ("1x4", "2x2", "1x2", "1x1")),
+    ("query", "log_cosine"): (dict(scoring_algorithm="LOG_COSINE"), {}, ("1x4",)),
+    ("hybrid", "cosine"): (dict(), {}, ("2x2", "1x4", "1x2", "1x1")),
+    ("hybrid", "dot_window"): (dict(scoring_algorithm="DOT_PRODUCT"), {"now": True}, ("2x2",)),
+    ("hybrid", "few_partials"): (dict(), {"partials_per_shard": 24}, ("2x2", "1x4")),
+    ("hybrid", "no_source_norm"): (dict(scoring_algorithm="COSINE_NO_SOURCE_NORM"), {"now": True}, ("1x2",)),
+}
+
+
+def ann_sharded(inputs):
+    from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
+    from the_algorithm_tpu_torch.ops.sparse import SparseEmbedding
+    from the_algorithm_tpu_torch.simclusters import ann
+
+    meshes = {f"{d}x{m}": mesh for (d, m), mesh in build_meshes().items()}
+    index = ClusterTweetIndex(*(torch.from_numpy(a) for a in inputs["index"]))
+    sources = SparseEmbedding(*(torch.from_numpy(a) for a in inputs["sources"]))
+    out = {}
+    for key, m in meshes.items():
+        if m is None:
+            continue
+        local = ann.shard_index(m, index)
+        for (form, variant), (fields, opts, keys) in ANN_CASES.items():
+            if key not in keys:
+                continue
+            fields = dict(inputs["config"], **fields)
+            if "scoring_algorithm" in fields:
+                fields["scoring_algorithm"] = ScoringAlgorithm[fields["scoring_algorithm"]]
+            cfg = ann.SimClustersANNConfig(**fields)
+            now = inputs["now"] if opts.get("now") else None
+            if form == "index":
+                got = ann.get_tweet_candidates_sharded(m, local, sources, cfg, now=now,
+                                                       partials_per_shard=opts.get("partials_per_shard"))
+            elif form == "query":
+                block = SparseEmbedding(*(shard_rows(t, m, pad=False) for t in sources))
+                got = ann.get_tweet_candidates_query_sharded(m, local, block, cfg, now=now)
+            else:
+                block = SparseEmbedding(*(shard_rows(t, m, over=(DATA_AXIS,), pad=False) for t in sources))
+                got = ann.get_tweet_candidates_hybrid(m, local, block, cfg, now=now,
+                                                      partials_per_shard=opts.get("partials_per_shard"))
+            out[f"{form}/{variant}/{key}"] = _np(got)
+        ids = shard_rows(inputs["fetch_ids"], m, pad=False)
+        out[f"fetch/{key}"] = _np(tuple(ann.fetch_cluster_rows(m, local, ids)))
+        out[f"errors/{key}"] = _error(lambda: ann.shard_index(m, ClusterTweetIndex(*(t[:-1] for t in index))))
+    return out
+
+
+# -- tests/test_torch_sharded_serve.py ------------------------------------------
+
+# 33 users and 50 authors: tables whose rows divide neither 2 nor 4 shards,
+# so keys must be taken modulo the logical capacities, not the padded shards
+SERVE_WORLD = dict(seed=3, num_users=33, num_authors=50, num_tweets=1 << 12, engagement_width=8, now=10_000_000)
+SERVE_PB = 128
+SERVE_K = 8
+SERVE_SHAPES = ((1, 2), (2, 2), (1, 4))
+
+
+def serve_batch(ForYouQuery, Candidate, n_req=4):
+    """[(query, candidates)] of ``n_req`` requests (the JAX package's
+    tests/test_sharded_serve.py batch over this file's world): seeded
+    candidates with small creation times, where the random ranker's scores
+    spread (PERF.md §2); user and author ids past their tables' rows, read
+    modulo the logical row counts."""
+    A, now = SERVE_WORLD["num_authors"], SERVE_WORLD["now"]
+    batch = []
+    for u in range(1, n_req + 1):
+        rng = np.random.default_rng(9)
+        cands = []
+        for i in range(20 + u):
+            tid = int(rng.integers(1, 1 << 20))
+            cands.append(Candidate(id=tid, source=("simclusters_interested_in", "EarlybirdInNetwork",
+                                                   "DirectUteg")[i % 3], features={
+                "retrieval_score": float(rng.random()), "social_proof": float(i % 3), "author_id": tid % (A + 10),
+                "created_ts": tid % 900, "topic_id": tid % 16, "language_id": tid % 8, "media_type": tid % 4,
+                "conversation_id": tid // 2, "is_in_network": float(i % 2)}))
+        q = ForYouQuery(user_id=(8, 16, 35, 70)[u - 1], followed_authors=[int(a) for a in range(0, A, 5)], max_results=50,
+                        now=now)
+        batch.append((q, cands))
+    return batch
+
+
+def serve_columns(ForYouQuery):
+    """[(query, cols, n)] for the device-selected path (the JAX package's
+    test_sharded_select_columnar_parity)."""
+    rng = np.random.default_rng(11)
+    batch = []
+    for u in range(1, 5):
+        q = ForYouQuery(user_id=u, followed_authors=[1, 2, 3], max_results=SERVE_K, now=SERVE_WORLD["now"])
+        n = 30
+        cols = {"ids": rng.integers(1, 1 << 20, n), "author_id": rng.integers(0, 60, n),
+                "retrieval_score": rng.random(n).astype(np.float32)}
+        batch.append((q, cols, n))
+    return batch
+
+
+def sharded_serve(inputs):
+    from the_algorithm_tpu_torch.mixers import device_hydration as dh
+    from the_algorithm_tpu_torch.mixers import sharded_serve as ss
+    from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
+    from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
+    from the_algorithm_tpu_torch.models import masknet
+    from the_algorithm_tpu_torch.pipeline.component import Candidate
+
+    world = wh.synthetic_world(**SERVE_WORLD, device="cpu")
+    tables, fns, resolvers = dh.build_from_world(world, world.pop("device_spec"))
+    model = masknet.MaskNet(masknet.MaskNetConfig(**inputs["model_cfg"]), device="cpu")
+    model.load_state_dict(masknet.params_from_flax(inputs["params"]))
+    weights = inputs["weights"]
+    out = {}
+    for (d, e), m in build_meshes(SERVE_SHAPES).items():
+        if m is None:
+            continue
+        key = f"{d}x{e}"
+        eng = ss.ShardedServeEngine(tables, fns, resolvers, model, weights, m, pad_b=SERVE_PB,
+                                    compute_dtype=torch.float32)
+        out[f"score/{key}"] = eng.score_requests(serve_batch(ForYouQuery, Candidate))
+        out[f"score3/{key}"] = eng.score_requests(serve_batch(ForYouQuery, Candidate, 3))
+        sel = ss.ShardedServeEngine(tables, fns, resolvers, model, weights, m, pad_b=SERVE_PB,
+                                    compute_dtype=torch.float32, select_top_k=SERVE_K)
+        out[f"select/{key}"] = sel.select_columnar(serve_columns(ForYouQuery))
+        placed, axes = ss.place_tables(tables, m)
+        out[f"placed/{key}"] = {"doc_table": _np(placed.doc_table), "gfs_neighbors": _np(placed.gfs_neighbors),
+                                "twhin_author": _np(placed.twhin_author), "axes": axes}
+        out[f"resident/{key}"] = sum(t.numel() for p in eng._packs.values() for t in p.values())
+    out["caps"] = ss.table_capacities(tables)
+    out["bad_pad"] = _error(lambda: ss.ShardedServeEngine(
+        tables, fns, resolvers, model, weights, build_meshes(((1, 4),))[(1, 4)], pad_b=SERVE_PB + 2))
+    return out
+
+
+# -- tests/test_torch_sharded_search.py -----------------------------------------
+
+SEARCH_CASES = ("relevance", "custom", "model", "recency")
+
+
+def sharded_search(inputs):
+    from the_algorithm_tpu_torch.features import graph_features as gf
+    from the_algorithm_tpu_torch.search import earlybird as eb
+    from the_algorithm_tpu_torch.search import root as rt
+
+    def query(fields):
+        return eb.SearchQuery(**{k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+                                 for k, v in fields.items()})
+
+    index = eb.EarlybirdIndex.from_numpy(*inputs["corpus"], 0, device="cpu")
+    archive = eb.EarlybirdIndex.from_numpy(*inputs["archive"], 0, device="cpu")
+    rel = eb.RelevanceParams.from_numpy(*inputs["relevance"], device="cpu")
+    opts = {"relevance": dict(), "custom": dict(relevance=rel),
+            "model": dict(model_score_fn=lambda f: torch.zeros(f.shape[0])), "recency": dict(rank_by="recency")}
+    nbrs = gf.GraphTables(torch.from_numpy(inputs["gfs"]))
+    out = {}
+    for (d, e), m in build_meshes().items():
+        if m is None:
+            continue
+        key = f"{d}x{e}"
+        local = eb.shard_index(m, index)
+        for case in SEARCH_CASES:
+            out[f"search/{case}/{key}"] = _np(eb.search_sharded(
+                m, local, query(inputs["queries"][case]), max_results=inputs["max_results"][case], **opts[case]))
+        sharded = gf.shard_tables(nbrs, e)
+        out[f"gfs_tables/{key}"] = _np(sharded)
+        out[f"gfs/{key}"] = _np(gf.feature_block_sharded(m, shard_rows(sharded, m), inputs["uid"],
+                                                         torch.from_numpy(inputs["cands"])))
+        root = rt.SuperRoot([rt.Tier("realtime", local, 900, 999, mesh=m), rt.Tier("archive", archive, 800, 899)])
+        q = query(inputs["queries"]["root"])
+        ids, scores, per_tier = root.search(q, max_results=30)
+        out[f"root/{key}"] = (ids, scores, [t.tier for t in per_tier])
+        out[f"pages/{key}"] = list(root.paginate(q, page_size=16, max_pages=6))
+    return out

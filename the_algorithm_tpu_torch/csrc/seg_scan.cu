@@ -551,8 +551,9 @@ extern "C" int run_collapse_sorted(const void* ids, const void* v0, const void* 
 //     first row's run began in an earlier warp of the CTA adds those tails,
 //     then its head. When the run began in an earlier CTA, warp 0 finds that
 //     CTA (a search for the run's first slot), the CTA waits for the flags of
-//     the CTAs from there on (the grid is resident, and every CTA raises its
-//     flag before it waits on any, so the wait ends), its 8 warps add their
+//     the CTAs from there on (the grid is resident — a cooperative launch
+//     guarantees it — and every CTA raises its flag before it waits on any,
+//     so the wait ends), its 8 warps add their
 //     parts in 8 fixed ranges, and the row is the ranges' sums in order plus
 //     the CTA's own sum. The order of every sum depends only on (n, N, D, the
 //     grid), not on timing. A reader sets a flag back to 0, so the flags need
@@ -950,35 +951,18 @@ __global__ void __launch_bounds__(ROWS_THREADS, ROWS_CTAS_PER_SM) run_collapse_r
   if (a.zero_rows) zero_gaps<VEC>(a, sl, carried, lane);
 }
 
-// CTAs of the kernel the card holds at once: the most a grid may have, since a
-// CTA may wait on an earlier one. Cached per device.
-template <bool VEC>
-cudaError_t rows_resident(int* resident) {
-  static int cached[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && cached[dev] > 0) {
-    *resident = cached[dev];
-    return cudaSuccess;
-  }
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, run_collapse_rows_kernel<VEC>, ROWS_THREADS, 0);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  *resident = per_sm * sms;
-  if (dev < 64) cached[dev] = *resident;
-  return cudaSuccess;
-}
-
+// A cooperative launch: the card either makes every CTA of the grid resident
+// at once, which a CTA waiting on an earlier one's flag relies on, or refuses
+// the launch (cudaErrorCooperativeLaunchTooLarge) — never a grid that only
+// progresses while its CTAs happen to be dispatched in order beside other
+// streams' work. ops/seg_scan.py:_rows_plan sizes the grid to ROWS_CTAS_PER_SM
+// CTAs an SM.
 template <bool VEC>
 cudaError_t launch_rows(const RowsArgs& a, cudaStream_t stream) {
-  int resident = 0;
-  cudaError_t err = rows_resident<VEC>(&resident);
-  if (err != cudaSuccess) return err;
-  if (a.G > resident) return cudaErrorInvalidConfiguration;  // a wait could outlast the grid
-  run_collapse_rows_kernel<VEC><<<a.G, ROWS_THREADS, 0, stream>>>(a);
-  return cudaGetLastError();
+  RowsArgs args = a;
+  void* params[] = {&args};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(run_collapse_rows_kernel<VEC>), dim3(a.G),
+                                     dim3(ROWS_THREADS), params, 0, stream);
 }
 
 }  // namespace
@@ -987,7 +971,8 @@ cudaError_t launch_rows(const RowsArgs& a, cudaStream_t stream) {
 // [n', D] f32 contiguous; out: [N, D] f32 contiguous (zero-filled by the caller
 // when zero_rows == 0; otherwise every row is written here). scratch: (2 * 8 +
 // 1) * grid * D floats; flags: grid ints, all 0 (and left 0). grid: CTAs, at
-// most n + N and as many as the card holds at once (ops/seg_scan.py:_rows_plan).
+// most n + N and as many as the card holds at once (ops/seg_scan.py:_rows_plan;
+// the cooperative launch refuses more).
 // vec != 0 takes 16-byte vectors (D % 4 == 0; dy, out and scratch 16-byte
 // aligned). Returns the launch's cudaError_t.
 extern "C" int run_collapse_rows(const void* ids, const void* perm, const void* dy, void* out, void* scratch,

@@ -196,15 +196,34 @@ def _agg_expose_rows(block: torch.Tensor, last: torch.Tensor, rows: torch.Tensor
     return out.reshape(*shape, _L * _H * 5)
 
 
-def keyed_table_plan(tables: DeviceWideTables) -> Dict[Tuple[str, int], Dict[str, torch.Tensor]]:
+def _cap_of(caps: Optional[Dict[str, int]], name: str, arr, axis: int = 0) -> int:
+    """True (unpadded) row count of a keyed table.
+
+    Inside the sharded engine (``mixers/sharded_serve.py``) a leaf holds
+    only its local shard, zero-padded to a shard multiple, or a placeholder,
+    so modulo keys come from the recorded logical capacities, never from
+    ``shape[0]``.
+    """
+    if caps is not None and name in caps:
+        return caps[name]
+    return arr.shape[axis]
+
+
+def keyed_table_plan(tables: DeviceWideTables, caps: Optional[Dict[str, int]] = None
+                     ) -> Dict[Tuple[str, int], Dict[str, torch.Tensor]]:
     """The gather route plan: (key flavor, capacity) → named table group.
-    Tables sharing a key flavor AND row count read with one key array."""
-    A_m = tables.tweepcred.shape[0]
-    U_g = tables.gfs_neighbors.shape[1]
+    Tables sharing a key flavor AND row count read with one key array. Used
+    by :func:`gather_rows` (which computes each route's key) and by the
+    sharded engine's packer (which concatenates each group into one
+    exchange buffer), so the two never disagree on what rides which route.
+    ``caps``: the logical row counts (``sharded_serve.table_capacities``)."""
+    A_m = _cap_of(caps, "tweepcred", tables.tweepcred)
+    A_m2 = _cap_of(caps, "author_meta", tables.author_meta)
+    U_g = _cap_of(caps, "gfs_neighbors", tables.gfs_neighbors, axis=1)
     plan: Dict[Tuple[str, int], Dict[str, torch.Tensor]] = {}
 
     def add(flavor, name, tab, cap=None):
-        plan.setdefault((flavor, int(tab.shape[0] if cap is None else cap)), {})[name] = tab
+        plan.setdefault((flavor, int(_cap_of(caps, name, tab) if cap is None else cap)), {})[name] = tab
 
     add("ids", "doc", tables.doc_table)
     add("ids", "tw_tweet", tables.twhin_tweet)
@@ -214,7 +233,7 @@ def keyed_table_plan(tables: DeviceWideTables) -> Dict[Tuple[str, int], Dict[str
     add("authors", "tw_author_follow", tables.twhin_author_follow)
     add("authors", "author_agg_emb", tables.author_agg_emb)
     add("clip", "tweepcred", tables.tweepcred, A_m)
-    if tables.author_meta.shape[0] == A_m:
+    if A_m2 == A_m:
         add("clip", "author_meta", tables.author_meta, A_m)
     add("uid", "rg_nbrs", tables.rg_nbr_ids)
     add("uid", "rg_counts", tables.rg_counts)
@@ -241,33 +260,11 @@ def _as_rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[0], -1)
 
 
-def _ring_rows(t: torch.Tensor) -> bool:
-    """Whether the TMA ring copies this [rows, width] table: its rows and its
-    base are 16-byte multiples (``gather._plan``)."""
-    return (t.shape[1] * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
-
-
-def launch_groups(group: Dict[str, torch.Tensor]) -> List[List[str]]:
-    """The names of ``group`` (tables viewed as [rows, width]) split into
-    :func:`multiget`'s row_gather launches: 16-byte rows together, then the
-    rest, at most ``gather.MAX_TABLES`` a launch."""
-    ring = [n for n, t in group.items() if _ring_rows(t)]
-    words = [n for n, t in group.items() if not _ring_rows(t)]
-    k = gather_ops.MAX_TABLES
-    return [names[i:i + k] for names in (ring, words) for i in range(0, len(names), k)]
-
-
-def multiget(group: Dict[str, torch.Tensor], key: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """``{name: table[key]}`` for same-row-count tables, through the
-    row-gather kernel (its plain version on the CPU); ``key`` holds rows in
-    range."""
-    key = key.to(torch.int32)
-    flat = {n: _as_rows(t) for n, t in group.items()}
-    out = {}
-    for names in launch_groups(flat):
-        for n, g in zip(names, gather_ops.row_gather(key, *(flat[n] for n in names))):
-            out[n] = g.reshape(key.shape + group[n].shape[1:])
-    return out
+# the multiget lives with the kernel it launches (the sharded table's owner
+# gather takes it too); these names stay for the hydration tier's callers
+_ring_rows = gather_ops.ring_rows
+launch_groups = gather_ops.launch_groups
+multiget = gather_ops.multiget
 
 
 def gather_rows(
@@ -275,6 +272,7 @@ def gather_rows(
     req: DeviceRequests,
     *,
     gather: Optional[Callable] = None,
+    caps: Optional[Dict[str, int]] = None,
     agg_packed: Optional[AggPacked] = None,
 ) -> Dict[str, Any]:
     """Resolve every keyed table row the assembly math needs.
@@ -285,6 +283,9 @@ def gather_rows(
     semantics (``torch.remainder``), so author -1 and PAD ids read rows in
     range.
 
+    ``caps``: the logical row counts the keys are taken modulo (the sharded
+    engine's tables hold local shards); default each table's ``shape[0]``.
+
     ``agg_packed`` (``tables.agg_packed``): every candidate- and
     viewer-keyed store row in ONE gather call (two launches: the 16-byte
     value rows and the 4-byte timestamps) instead of 18.
@@ -292,7 +293,8 @@ def gather_rows(
     gather = gather or multiget
     ids, authors, uid = req.cand_ids, req.author_ids, req.uid
     rows: Dict[str, Any] = {}
-    A_m = tables.tweepcred.shape[0]
+    A_m = _cap_of(caps, "tweepcred", tables.tweepcred)
+    A_m2 = _cap_of(caps, "author_meta", tables.author_meta)
     clip_a = torch.clamp(authors, min=0)
     flavors = {
         "ids": lambda cap: torch.remainder(ids, cap),
@@ -300,11 +302,10 @@ def gather_rows(
         "clip": lambda cap: torch.remainder(clip_a, cap),
         "uid": lambda cap: torch.remainder(uid, cap),
     }
-    for (flavor, cap), group in keyed_table_plan(tables).items():
+    for (flavor, cap), group in keyed_table_plan(tables, caps).items():
         rows.update(gather(group, flavors[flavor](cap)))
-    if tables.author_meta.shape[0] != A_m:
-        rows.update(gather({"author_meta": tables.author_meta},
-                           torch.remainder(torch.remainder(clip_a, A_m), tables.author_meta.shape[0])))
+    if A_m2 != A_m:
+        rows.update(gather({"author_meta": tables.author_meta}, torch.remainder(torch.remainder(clip_a, A_m), A_m2)))
     rows["gfs_a"] = {n: rows.pop(f"gfs_a::{n}") for n in graph_features.FEATURE_PAIRS}
     rows["gfs_b"] = {n: rows.pop(f"gfs_b::{n}") for n in graph_features.FEATURE_PAIRS}
 

@@ -22,7 +22,7 @@ scatter-add.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -165,6 +165,34 @@ def row_gather(ids: torch.Tensor, *tables: torch.Tensor) -> Tuple[torch.Tensor, 
 
 
 row_gather.launches = 0  # kernel launches, counted by the wrapper
+
+
+def ring_rows(t: torch.Tensor) -> bool:
+    """Whether the TMA ring copies this [rows, width] table: its rows and its
+    base are 16-byte multiples (:func:`_plan`)."""
+    return (t.shape[1] * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
+
+
+def launch_groups(group: Dict[str, torch.Tensor]) -> List[List[str]]:
+    """The names of ``group`` (tables viewed as [rows, width]) split into
+    :func:`multiget`'s row_gather launches: 16-byte rows together, then the
+    rest, at most :data:`MAX_TABLES` a launch."""
+    ring = [n for n, t in group.items() if ring_rows(t)]
+    words = [n for n, t in group.items() if not ring_rows(t)]
+    return [names[i:i + MAX_TABLES] for names in (ring, words) for i in range(0, len(names), MAX_TABLES)]
+
+
+def multiget(group: Dict[str, torch.Tensor], key: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``{name: table[key]}`` for same-row-count tables (rows of any shape),
+    through the row-gather kernel in :func:`launch_groups`' launches (its
+    plain version on the CPU); ``key`` holds rows in range."""
+    key = key.to(torch.int32)
+    flat = {n: t.reshape(t.shape[0], -1) for n, t in group.items()}
+    out = {}
+    for names in launch_groups(flat):
+        for n, g in zip(names, row_gather(key, *(flat[n] for n in names))):
+            out[n] = g.reshape(key.shape + group[n].shape[1:])
+    return out
 
 
 def grad_ids(ids: torch.Tensor, n: int) -> torch.Tensor:

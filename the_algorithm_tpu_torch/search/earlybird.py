@@ -910,6 +910,59 @@ def search_in_network_batch(
     return torch.where(torch.isfinite(top), index.tweet_ids[idx], PAD_ID), top
 
 
+def search_sharded(
+    mesh,
+    index: EarlybirdIndex,  # this rank's block of the tweet axis, P('model') on [T] arrays
+    query: SearchQuery,
+    *,
+    max_results: int,
+    relevance: Optional[RelevanceParams] = None,
+    model_score_fn=None,
+    rank_by: str = "relevance",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partitioned scan + root merge (≡ ``earlybird_root`` fan-out): each
+    rank scans its block of the index and the per-partition top-X lists are
+    gathered over 'model' and merged; every rank returns the same (ids [X],
+    scores [X]).
+
+    Relevance: the text-corpus statistics (df, Σ doclen, live docs) are
+    summed over the partitions first, so idf and length norms are the
+    single index's (whole-number float32 counts, exact below 2^24; the
+    reference's per-partition Lucene idf drifts here). Recency: the merge
+    ranks on the int32 timestamps with an int32-min sentinel, never on
+    float scores (float32 at epoch-second magnitude is ~128 s an ulp).
+    Ties merge in shard order, then ring slot, as ``lax.top_k`` ranks the
+    gathered lists.
+    """
+    from the_algorithm_tpu_torch.core.mesh import MODEL_AXIS
+
+    X = max_results
+    if rank_by == "recency":
+        ok, _ = match_mask(index, query)
+        key = torch.where(ok, index.created_ts, INT32_MIN)
+        top_ts, idx = top_k(key, min(X, key.shape[0]))
+        ids = torch.where(top_ts > INT32_MIN, index.tweet_ids[idx], PAD_ID)
+        all_ids, all_keys = mesh.all_gather(ids, MODEL_AXIS), mesh.all_gather(top_ts, MODEL_AXIS)
+        top, midx = top_k(all_keys, min(X, all_keys.shape[0]))
+        found = top > INT32_MIN
+        return torch.where(found, all_ids[midx], PAD_ID), torch.where(found, top.float(), -torch.inf)
+    stats = tuple(mesh.psum(s, MODEL_AXIS)
+                  for s in text_corpus_stats(index.tokens, query.tokens, index.author != PAD_ID))
+    ids, scores = search(index, query, max_results=X, relevance=relevance, model_score_fn=model_score_fn,
+                         rank_by=rank_by, corpus_stats=stats)
+    all_ids, all_scores = mesh.all_gather(ids, MODEL_AXIS), mesh.all_gather(scores, MODEL_AXIS)
+    top, idx = top_k(all_scores, min(X, all_scores.shape[0]))
+    return torch.where(torch.isfinite(top), all_ids[idx], PAD_ID), top
+
+
+def shard_index(mesh, index: EarlybirdIndex) -> EarlybirdIndex:
+    """This rank's block of an index's tweet axis (P('model')), on the
+    mesh's device, for :func:`search_sharded`. The capacity must divide."""
+    from the_algorithm_tpu_torch.core.mesh import shard_rows
+
+    return EarlybirdIndex(*(shard_rows(t, mesh, pad=False, what="capacity") for t in index[:5]), 0)
+
+
 # -- facets (the earlybird facets endpoint) -----------------------------------
 
 

@@ -7,19 +7,22 @@ protected, full archive — merges per-tier top-K, and early-terminates
 (skips older tiers) when the newer tier already fills the request.
 Pagination via a ``max_ts`` cursor.
 
-Each tier is an :class:`~the_algorithm_tpu_torch.search.earlybird.EarlybirdIndex`
-on one device; routing and merge are small host steps around the per-tier
-scans. A tier that carries a ``mesh`` (the JAX package's partition fan-out
-through ``search_sharded``) raises NotImplementedError until the
-multi-device layer is ported: it is never scanned unsharded instead.
+Each tier is an :class:`~the_algorithm_tpu_torch.search.earlybird.EarlybirdIndex`;
+routing and merge are small host steps around the per-tier scans. A tier
+that carries a ``mesh`` is partitioned over it: its ``index`` is this
+rank's block (``earlybird.shard_index``), every rank of the mesh runs the
+root together, and the partition fan-out goes through
+``earlybird.search_sharded``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID
 from the_algorithm_tpu_torch.search import earlybird as eb
@@ -33,7 +36,7 @@ class Tier:
     index: eb.EarlybirdIndex
     min_ts: int  # oldest tweet this tier serves
     max_ts: int  # newest (archive tiers end where realtime begins)
-    mesh: Optional[object] = None  # a partitioned tier: not ported yet
+    mesh: Optional[object] = None  # set → partition fan-out via search_sharded
 
     def overlaps(self, q_min: int, q_max: int) -> bool:
         return q_min <= self.max_ts and q_max >= self.min_ts
@@ -86,10 +89,8 @@ class SuperRoot:
         # inflate the early-termination count (a re-consumed ingest batch
         # would otherwise stop descent while the merge under-fills)
         for tier in self.route(query):
-            if tier.mesh is not None:
-                raise NotImplementedError(
-                    f"tier {tier.name!r} is partitioned over a mesh; the sharded scan is not ported yet")
-            ids, scores = eb.search(
+            scan = eb.search if tier.mesh is None else functools.partial(eb.search_sharded, tier.mesh)
+            ids, scores = scan(
                 tier.index, query.to(tier.index.tokens.device), max_results=max_results,
                 relevance=relevance, model_score_fn=model_score_fn,
             )
@@ -154,7 +155,14 @@ class SuperRoot:
             tids = tier.index.tweet_ids.cpu().numpy()
             ts = tier.index.created_ts.cpu().numpy()
             mask = np.isin(tids, list(want))
-            if mask.any():
-                t = int(ts[mask].min())
+            t = int(ts[mask].min()) if mask.any() else None
+            if tier.mesh is not None:  # the oldest over every partition of the tier
+                from the_algorithm_tpu_torch.core.mesh import MODEL_AXIS
+
+                none = np.iinfo(np.int64).max
+                t = int(tier.mesh.pmin(torch.tensor([none if t is None else t], device=tier.mesh.device),
+                                       MODEL_AXIS))
+                t = None if t == none else t
+            if t is not None:
                 best = t if best is None else min(best, t)
         return best
