@@ -165,11 +165,29 @@ Phases, each printing its result on its own line:
     against ``feature_block``; then four gloo ranks on this one card
     (``--mesh-rank``, each its own process): the hybrid form on a 2x2 mesh
     and the index-sharded form on a 1x4 mesh against the world-1 lists, a
-    4-way multiget of 65,536 ids bit-equal to ``index_select``.
+    4-way multiget of 65,536 ids bit-equal to ``index_select``;
+16. mesh_training, in a child process after that one (``chip_smoke.py
+    --mesh-training`` runs it alone): one NCCL rank and a 1x1 mesh; two-tower
+    and TwHIN with ``explicit_lookup`` at tweet-mixer's widths (16,384 x
+    2,000,000 x 128, B=4,096, adam 1e-2) through the sharded ``Trainer``
+    (the models' PARTITION_RULES) beside the one-device ``Trainer`` from the
+    same init: one counted step (2 + 2 and 3 + 3 row_gather +
+    run_collapse_rows, required exactly), the params after 3 steps within
+    the Adam rule (bit-equal said so), a step on CUDA events beside the
+    one-device step, the owner's row gather at the step's shape against
+    ``index_select``, then 300 steps and hits@100 of the planted item over
+    all 2M items (at least 0.5); bench.py's MaskNet step (F=6,000, bf16,
+    B=16,384, AdamBf16(1e-3)) through the sharded ``Trainer`` with
+    ``masknet.PARTITION_RULES`` against the one-device step; then four gloo
+    ranks on this one card (``--mesh-training-rank``): the explicit
+    two-tower on a 2x2 mesh (16,384 x 262,144 x 128, B=1,024), MaskNet
+    (F=6,000, f32, B=1,024) on a 1x4 mesh, and the 4x1 local-batch contract,
+    each rank's blocks and losses against the same runs at world 1.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
-updates, embedding training, the mesh layer), error and times, and, as the last line,
+updates, embedding training, the mesh layer's serving and training halves),
+error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
 """
@@ -416,13 +434,17 @@ def time_gather(ids, tables, label):
                 bound_ms=bound, bound_by="bytes", library_ms=plain_dev_ms)
 
 
-def phase_device():
-    require(torch.cuda.is_available(), "no CUDA device: this script runs on an NVIDIA GPU")
-    smi = subprocess.run(
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    print(smi[0])
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    require(torch.cuda.is_available(), "no CUDA device: this script runs on an NVIDIA GPU")
+    print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, torch "
@@ -2661,13 +2683,15 @@ RG_USERS, RG_DEGREE, RG_EVENTS, RG_BATCH = 16_384, 32, 65_536, 256  # RealGraph:
 WALS_SHAPE = dict(users=1024, items=2048, dim=32, iterations=5, history=64)
 
 
-def embedding_models(dev, shape=None, seed=13):
-    """Trainable two-tower and TwHIN models at the world's widths."""
+def embedding_models(dev, shape=None, seed=13, explicit=False):
+    """Trainable two-tower and TwHIN models at the world's widths (with
+    ``explicit``: reading through the row exchange, on a mesh)."""
     s = shape or TM_SHAPE
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tt = two_tower.TwoTower(two_tower.TwoTowerConfig(s.num_users, s.num_items, s.embed_dim, s.tower_hidden),
-                            device=dev, generator=gen)
-    th = twhin.Twhin(twhin.TwhinConfig(s.num_users, s.num_items, s.embed_dim), device=dev, generator=gen)
+    tt = two_tower.TwoTower(two_tower.TwoTowerConfig(s.num_users, s.num_items, s.embed_dim, s.tower_hidden,
+                                                     explicit_lookup=explicit), device=dev, generator=gen)
+    th = twhin.Twhin(twhin.TwhinConfig(s.num_users, s.num_items, s.embed_dim, explicit_lookup=explicit), device=dev,
+                     generator=gen)
     return tt, th
 
 
@@ -3583,6 +3607,342 @@ def phase_mesh(dev, root=None):
     return {"launches": launches, "row_gather": timing}
 
 
+# -- the mesh layer's training half ---------------------------------------------
+#
+# At world size 1 on the card (one NCCL rank, a 1x1 mesh): two-tower and TwHIN
+# with explicit_lookup at tweet-mixer's widths (16,384 users x 2,000,000 items x
+# 128) through the sharded Trainer, held to the one-device Trainer from the same
+# init and batches, then trained to hits@100; bench.py's MaskNet step through
+# the sharded Trainer with masknet.PARTITION_RULES, held to the one-device step.
+# Then E=4 on this one card: four gloo ranks (correctness only).
+MT_STEPS = 3  # steps the sharded Trainer is held to the one-device Trainer (and the E=4 ranks to world 1)
+MT_E4 = dict(users=16_384, items=262_144, dim=128, batch=1_024)  # the E=4 two-tower
+MT_E4_MASKNET = dict(TRAIN_MODEL, dtype="float32")  # the E=4 MaskNet on 1x4, f32
+MT_E4_LR = 1e-2
+MT_E4_TIMEOUT = 300
+MT_TIMEOUT = 420  # the mesh-training child's limit, inside the script's
+MT_LOSS_RTOL = 1e-5  # the local-batch contract: the reported loss against the global batch's at world 1
+# The E=4 MaskNet (F=6,000 f32, B=1,024, random labels) takes its first step
+# within the Adam rule of world 1's, but its later steps amplify any change
+# of summation order: on one CPU, 1 against 8 threads put 12% of the entries
+# beyond 1e-5 after step 2 and 35% after step 3 (every entry within 2·steps·lr).
+# Its first gradients agree to ~5e-7 of each parameter's largest entry when
+# both sides sum alike (one CPU thread a rank), but a ReLU gate whose input
+# sits within rounding of 0 may flip between two summation orders and move a
+# column of mask_agg's gradient by one example's share (1.6% of the largest
+# entry with 8 threads). So its gradients are held by cosine, as the bf16
+# gradient checks of tests/test_torch_training.py are, its first step to the
+# Adam rule and its third to the rule's bound alone.
+MT_GRAD_COS = 1 - 1e-4  # a wrong block or sum sends a cosine far below; one flipped gate ~1e-5
+
+
+def adam_rule(got, want, steps, lr, what):
+    """The Adam rule of the card checks: no parameter entry of ``got`` off
+    ``want``'s by more than 2·steps·lr, at most PARAM_OUTLIERS of them by
+    more than PARAM_ATOL. Returns (max |diff|, share beyond, bit-equal)."""
+    diffs = torch.cat([(got[k].float() - want[k].float()).abs().reshape(-1) for k in want])
+    max_diff, share = float(diffs.max()), float((diffs > PARAM_ATOL).double().mean())
+    require(max_diff <= 2 * steps * lr and share <= PARAM_OUTLIERS,
+            f"{what}: max |diff| {max_diff:.3g} (limit {2 * steps * lr:g}), {share:.3g} beyond {PARAM_ATOL:g}")
+    return max_diff, share, all(torch.equal(got[k], want[k]) for k in want)
+
+
+def params_of(model):
+    return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def mt_embedding(dev, mesh, name, planted, users):
+    """One embedding model with explicit_lookup through the sharded Trainer
+    on the 1x1 mesh against the one-device Trainer (same init, same
+    batches): a counted step, the params after MT_STEPS steps, a step on
+    CUDA events beside the one-device step, the owner's gather against
+    index_select at the joint batch's shape, then the rest of the fit and
+    hits@100. Returns the counted launches and the gather's numbers."""
+    idx = 0 if name == "two_tower" else 1
+    loss_fn = tweet_mixer_world.two_tower_train_loss if idx == 0 else tweet_mixer_world.twhin_train_loss
+    make = tweet_mixer_world.two_tower_batches if idx == 0 else tweet_mixer_world.twhin_batches
+    rules = two_tower.PARTITION_RULES if idx == 0 else twhin.PARTITION_RULES
+    batches = make(planted, EMB_B)
+    t0 = time.perf_counter()
+    one = Trainer(loss_fn, embedding_models(dev)[idx], TrainerConfig(learning_rate=EMB_LR), device=dev)
+    shd = Trainer(loss_fn, embedding_models(dev, explicit=True)[idx], TrainerConfig(learning_rate=EMB_LR),
+                  mesh=mesh, partition_rules=rules)
+    first = [put_batch(next(batches), dev) for _ in range(MT_STEPS)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _, launches = counted(lambda: shd.train_step(first[0]))
+    require(launches == EMB_LAUNCHES[name], f"{name} sharded step launches {launches}, want {EMB_LAUNCHES[name]}")
+    for b in first[1:]:
+        shd.train_step(b)
+    for b in first:
+        one.train_step(b)
+    max_diff, share, equal = adam_rule(params_of(shd.model), params_of(one.model), MT_STEPS, EMB_LR,
+                                       f"{name}: the sharded Trainer against the one-device Trainer")
+    timed = first[0]
+    ms, one_ms = timed_pair(lambda: shd.train_step(timed), lambda: one.train_step(timed), reps=EMB_TIMED)
+    print(f"mesh_training: {name} (explicit_lookup, {TM_SHAPE.num_users} x {TM_SHAPE.num_items} x "
+          f"{TM_SHAPE.embed_dim}, B={EMB_B}, adam {EMB_LR}) on the 1x1 mesh, built beside the one-device model in "
+          f"{setup_s:.1f} s (set-up): launches a step {launches}; params after {MT_STEPS} steps "
+          f"{'bit-equal to' if equal else 'within the Adam rule of'} the one-device Trainer's (max |diff| "
+          f"{max_diff:.3g}, share beyond {PARAM_ATOL:g} {share:.3g}); a step {ms:.3f} ms against the one-device "
+          f"step's {one_ms:.3f} ms (CUDA events, {EMB_TIMED} steps each, in turns; not a benchmark)")
+    del one
+    # the owner's gather of the item table at this step's shape: the joint batch's block, clipped
+    ids = put_batch(next(batches), dev)["items"].to(torch.int32).clamp(0, TM_SHAPE.num_items - 1).contiguous()
+    timing = time_gather(ids, (shd.model.item_table.detach(),),
+                         f"mesh_training: {ids.numel()} of {TM_SHAPE.num_items} x 512 B item rows (the sharded "
+                         f"{name} step's owner gather at world 1)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    while shd.step < EMB_STEPS:
+        out = shd.train_step(next(batches))
+    loss = float(out["loss"])
+    fit_s = time.perf_counter() - t0
+    if idx == 0:
+        hits = round(tweet_mixer_world.two_tower_hits(shd.model, planted, users, EMB_K), 4)
+    else:
+        hits = [round(h, 4) for h in tweet_mixer_world.twhin_hits(shd.model, planted, users, EMB_K)]
+    require(all(h >= EMB_HITS for h in np.atleast_1d(hits)), f"{name}: sharded hits@{EMB_K} {hits} below {EMB_HITS}")
+    print(f"mesh_training: {name} sharded fit to {EMB_STEPS} steps, loss {loss:.4f} ({fit_s:.1f} s on the host "
+          f"clock); hits@{EMB_K} of the planted item over all {TM_SHAPE.num_items} items, {EMB_EVAL_USERS} users: "
+          f"{hits} (at least {EMB_HITS} required)")
+    del shd
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
+def masknet_trainers(dev, cfg, meshes):
+    """A Trainer for each of ``meshes`` (None: one device; else sharded by
+    masknet.PARTITION_RULES) over the same MaskNet init, each with bench.py's
+    AdamBf16 (TRAIN_LR) for the config's adam."""
+    loss_fn = lambda m, b: (masknet.multi_task_loss(m(b["x"]), b["y"]), {})  # noqa: E731
+    out = []
+    for m in meshes:
+        model = masknet.MaskNet(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        if m is None:
+            tr = Trainer(loss_fn, model, TrainerConfig(learning_rate=TRAIN_LR), device=dev)
+        else:
+            tr = Trainer(loss_fn, model, TrainerConfig(learning_rate=TRAIN_LR), mesh=m,
+                         partition_rules=masknet.PARTITION_RULES)
+        blocks = tr.optimizer.block_axes
+        tr.optimizer = optimizers.AdamBf16(tr.model.parameters(), TRAIN_LR)  # bench.py's optimizer
+        if m is not None:
+            tr.optimizer.split_over(m, blocks)
+        out.append(tr)
+    return out
+
+
+def masknet_batch(dev, cfg, B, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(B, cfg.num_features)).astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.random((B, cfg.num_heads)) < 0.05).astype(np.float32)).to(dev)
+    return {"x": x.to(torch.bfloat16) if cfg.dtype == "bfloat16" else x, "y": y}
+
+
+def mt_masknet(dev, mesh):
+    """bench.py's MaskNet step through the sharded Trainer on the 1x1 mesh
+    against the one-device step: the params after MT_STEPS steps, and both
+    steps on CUDA events."""
+    cfg = masknet.MaskNetConfig(**TRAIN_MODEL)
+    one, shd = masknet_trainers(dev, cfg, (None, mesh))
+    batch = masknet_batch(dev, cfg, TRAIN_B)
+    for _ in range(MT_STEPS):
+        one.train_step(batch)
+        shd.train_step(batch)
+    max_diff, share, equal = adam_rule(params_of(shd.model), params_of(one.model), MT_STEPS, TRAIN_LR,
+                                       "MaskNet: the sharded Trainer against the one-device Trainer")
+    ms, one_ms = timed_pair(lambda: shd.train_step(batch), lambda: one.train_step(batch), reps=TRAIN_STEPS)
+    print(f"mesh_training: bench.py's MaskNet step (F={cfg.num_features}, bf16, B={TRAIN_B}, AdamBf16({TRAIN_LR})) "
+          f"through the sharded Trainer with masknet.PARTITION_RULES on the 1x1 mesh: params after {MT_STEPS} steps "
+          f"{'bit-equal to' if equal else 'within the Adam rule of'} the one-device Trainer's (max |diff| "
+          f"{max_diff:.3g}, share beyond {PARAM_ATOL:g} {share:.3g}); a step {ms:.3f} ms against {one_ms:.3f} ms "
+          f"(CUDA events, {TRAIN_STEPS} steps each, in turns; not a benchmark)")
+    del one, shd, batch
+    torch.cuda.empty_cache()
+
+
+def e4_two_tower(dev, explicit):
+    s = MT_E4
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return two_tower.TwoTower(two_tower.TwoTowerConfig(s["users"], s["items"], s["dim"], (s["dim"],),
+                                                       explicit_lookup=explicit), device=dev, generator=gen)
+
+
+def e4_batches():
+    rng = np.random.default_rng(8)
+    s = MT_E4
+    return [{"users": rng.integers(0, s["users"], s["batch"]).astype(np.int32),
+             "items": rng.integers(0, s["items"], s["batch"]).astype(np.int32)} for _ in range(MT_STEPS)]
+
+
+def e4_runs(dev, mesh, rank=None):
+    """The E=4 check's three runs on ``mesh`` (world 1 in the parent, the
+    2x2, 1x4 and 4x1 meshes on a rank): the explicit two-tower, the f32
+    MaskNet and the implicit two-tower fed local batches. Returns numpy
+    results by name, and the two sharded models' specs."""
+    meshes = mesh if isinstance(mesh, dict) else {k: mesh for k in ("2x2", "1x4", "4x1")}
+    res = {}
+    tt = Trainer(tweet_mixer_world.two_tower_train_loss, e4_two_tower(dev, True), TrainerConfig(learning_rate=MT_E4_LR),
+                 mesh=meshes["2x2"], partition_rules=two_tower.PARTITION_RULES)
+    batches = e4_batches()
+    _, n = counted(lambda: tt.train_step(batches[0]))
+    for b in batches[1:]:
+        tt.train_step(b)
+    res["tt_launches"] = np.asarray([n["row_gather"], n["run_collapse_rows"]])
+    res.update({f"tt/{k}": v.cpu().numpy() for k, v in params_of(tt.model).items()})
+    specs = {"tt": tt.specs}
+    del tt
+    cfg = masknet.MaskNetConfig(**MT_E4_MASKNET)
+    (mn,) = masknet_trainers(dev, cfg, (meshes["1x4"],))
+    batch = masknet_batch(dev, cfg, MT_E4["batch"], seed=9)
+    mn.train_step(batch)  # the first step's gradients (after the gradient rule) and params
+    res.update({f"mn1/{k}": v.cpu().numpy() for k, v in params_of(mn.model).items()})
+    res.update({f"mng/{k}": p.grad.cpu().numpy() for k, p in mn.model.named_parameters()})
+    for _ in range(MT_STEPS - 1):
+        mn.train_step(batch)
+    res.update({f"mn/{k}": v.cpu().numpy() for k, v in params_of(mn.model).items()})
+    specs["mn"] = mn.specs
+    del mn, batch
+    m41 = meshes["4x1"]
+    local = Trainer(tweet_mixer_world.two_tower_train_loss, e4_two_tower(dev, False),
+                    TrainerConfig(learning_rate=MT_E4_LR), mesh=m41, partition_rules=two_tower.PARTITION_RULES,
+                    local_batches=rank is not None)
+    per = MT_E4["batch"] // m41.size(meshlib.DATA_AXIS)
+    pos = m41.coord(meshlib.DATA_AXIS)
+    feed = [b if rank is None else {k: v[pos * per:(pos + 1) * per] for k, v in b.items()} for b in batches]
+    res["local_loss"] = np.asarray([float(local.train_step(b)["loss"]) for b in feed])
+    del local
+    torch.cuda.empty_cache()
+    return res, specs
+
+
+def mt_rank(rank: int, root: str) -> int:
+    """One of the E=4 check's ranks (``chip_smoke.py --mesh-training-rank r
+    dir``): a gloo rank on cuda:0 running :func:`e4_runs` on 2x2, 1x4 and
+    4x1 meshes, its results into ``root``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(root, 'store4')}", rank=rank, world_size=4)
+    try:
+        meshes = {k: meshlib.make_mesh(meshlib.MeshSpec(data=d, model=m)) for k, (d, m) in
+                  (("2x2", (2, 2)), ("1x4", (1, 4)), ("4x1", (4, 1)))}
+        res, _ = e4_runs(dev, meshes, rank)
+        dist.barrier()
+        np.savez(os.path.join(root, f"mt_rank{rank}.npz"), **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spec_block(x: np.ndarray, spec, coords: dict, sizes: dict) -> np.ndarray:
+    """The block of global ``x`` under ``spec`` at mesh ``coords``."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        pos, n = 0, 1
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            pos, n = pos * sizes[a] + coords[a], n * sizes[a]
+        per = x.shape[dim] // n
+        x = x[(slice(None),) * dim + (slice(pos * per, (pos + 1) * per),)]
+    return x
+
+
+def mt_four_ranks(dev, mesh, root):
+    """E=4 on this one card: four gloo ranks (each its own process on
+    cuda:0) against the same runs at world 1. Correctness only: the
+    exchange crosses the host, so no time of it is a rate."""
+    res, specs = e4_runs(dev, mesh)
+    want = {k: torch.from_numpy(v) for k, v in res.items()}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-training-rank", str(r), root])
+             for r in range(4)]
+    try:
+        codes = [p.wait(timeout=MT_E4_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(codes == [0, 0, 0, 0], f"an E=4 mesh-training rank failed: exit codes {codes}")
+    outs = [np.load(os.path.join(root, f"mt_rank{r}.npz")) for r in range(4)]
+    shapes = {"tt": {"data": 2, "model": 2}, "mn": {"data": 1, "model": 4}}
+    worst = {"tt": 0.0, "mn1": 0.0, "mn": 0.0, "mn_share": 0.0, "mng": 0.0}
+    for r, o in enumerate(outs):
+        rg, rows = (int(v) for v in o["tt_launches"])
+        require(rg == 2 and rows == 2, f"E=4 rank {r}: a two-tower step launched {rg} row_gather, {rows} "
+                                        "run_collapse_rows (want 2 + 2: each rank owns a block of both tables, "
+                                        "gathers its peers' rows and collapses their cotangents)")
+        for run in ("tt", "mng", "mn1", "mn"):
+            model = run[:2]
+            sizes = shapes[model]
+            coords = {"data": r // sizes["model"], "model": r % sizes["model"]}
+            got = {k: torch.from_numpy(o[f"{run}/{k}"]) for k in specs[model]}
+            ref = {k: torch.from_numpy(np.ascontiguousarray(spec_block(want[f"{run}/{k}"].numpy(), specs[model][k],
+                                                                       coords, sizes)))
+                   for k in specs[model]}
+            if run == "mng":  # each parameter's gradient block by cosine (MT_GRAD_COS's note)
+                cos = min(float(torch.nn.functional.cosine_similarity(got[k].double().reshape(1, -1),
+                                                                      ref[k].double().reshape(1, -1)))
+                          for k in ref if ref[k].abs().max() > 0)
+                require(cos >= MT_GRAD_COS, f"E=4 rank {r}: MaskNet gradients at cosine {cos:.8f} of world 1's")
+                worst[run] = max(worst[run], 1 - cos)
+            elif run == "mn":  # 3 steps: the rule's bound; the share is printed, not held (see MT_LOSS_RTOL's note)
+                diffs = torch.cat([(got[k] - ref[k]).abs().reshape(-1) for k in ref])
+                require(float(diffs.max()) <= 2 * MT_STEPS * TRAIN_LR,
+                        f"E=4 rank {r}: MaskNet params after {MT_STEPS} steps off world 1's by {float(diffs.max()):.3g}")
+                worst["mn"] = max(worst["mn"], float(diffs.max()))
+                worst["mn_share"] = max(worst["mn_share"], float((diffs > PARAM_ATOL).double().mean()))
+            else:
+                steps, lr = (MT_STEPS, MT_E4_LR) if run == "tt" else (1, TRAIN_LR)
+                worst[run] = max(worst[run], adam_rule(got, ref, steps, lr, f"E=4 rank {r} {run}")[0])
+        loss = o["local_loss"]
+        require(np.allclose(loss, want["local_loss"].numpy(), rtol=MT_LOSS_RTOL, atol=0),
+                f"E=4 rank {r}: the local-batch loss {loss} against the global batch's {want['local_loss'].numpy()}")
+    print(f"mesh_training E=4: four gloo ranks on the one card against the same runs at world 1: the explicit "
+          f"two-tower ({MT_E4['users']} x {MT_E4['items']} x {MT_E4['dim']}, B={MT_E4['batch']}, adam {MT_E4_LR}) on "
+          f"a 2x2 mesh, each rank's blocks after {MT_STEPS} steps within the Adam rule (max |diff| {worst['tt']:.3g}), "
+          f"each rank's step launching 2 row_gather + 2 run_collapse_rows (the owner's gather and gradient of each "
+          f"table); MaskNet (F={MT_E4_MASKNET['num_features']}, f32, B={MT_E4['batch']}, AdamBf16({TRAIN_LR})) with "
+          f"PARTITION_RULES on a 1x4 mesh: the first step's gradients at cosine >= {1 - worst['mng']:.8f} of world "
+          f"1's (limit {MT_GRAD_COS}), the params after it within the Adam rule (max |diff| "
+          f"{worst['mn1']:.3g}), after {MT_STEPS} steps max |diff| {worst['mn']:.3g} (limit {2 * MT_STEPS * TRAIN_LR:g}; "
+          f"share beyond {PARAM_ATOL:g} {worst['mn_share']:.3g}, not held: later steps amplify any change of "
+          f"summation order); the implicit two-tower on 4x1 fed "
+          f"a different quarter on each rank: the reported loss the global batch's within rtol {MT_LOSS_RTOL}; "
+          f"{time.perf_counter() - t0:.1f} s (correctness only)")
+
+
+def phase_mesh_training(dev):
+    """The mesh layer's training half at world size 1 (NCCL), then E=4 on
+    this one card over gloo. Returns the path's launches (the counted
+    sharded steps) and the owner gather's numbers."""
+    import torch.distributed as dist
+
+    print(card_line())
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store1')}", rank=0, world_size=1)
+        try:
+            mesh = meshlib.make_mesh(meshlib.MeshSpec(data=1, model=1))
+            print(f"mesh_training: one NCCL rank, a 1x1 (data, model) mesh on {mesh.device}; every collective of "
+                  "the step is over an axis of one rank, so none is launched")
+            planted = tweet_mixer_world.planted_engagements(TM_SHAPE)
+            users = np.random.default_rng(5).permutation(TM_SHAPE.num_users)[:EMB_EVAL_USERS]
+            tt, timing = mt_embedding(dev, mesh, "two_tower", planted, users)
+            th, _ = mt_embedding(dev, mesh, "twhin", planted, users)
+            mt_masknet(dev, mesh)
+            mt_four_ranks(dev, mesh, tmp)
+        finally:
+            dist.destroy_process_group()
+    launches = {k: tt[k] + th[k] for k in tt}
+    print(f"mesh_training: launches of the path {launches} (a sharded two-tower step {tt}, a TwHIN step {th})")
+    return {"launches": launches, "row_gather": timing}
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -3610,6 +3970,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
         save_world(world, root)  # the SANN world for the mesh child and its E=4 ranks
         by_path["mesh"] = phase_apart("--mesh", "mesh", root, timeout=MESH_TIMEOUT)["launches"]
+    by_path["mesh_training"] = phase_apart("--mesh-training", "mesh_training", timeout=MT_TIMEOUT)["launches"]
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
@@ -3633,7 +3994,10 @@ def main() -> int:
 if __name__ == "__main__":
     CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone,
                     "--embedding-training": phase_embedding_training, "--collapse-rows": phase_collapse_rows_sweep,
-                    "--mesh": lambda dev: phase_mesh(dev, sys.argv[2] if sys.argv[2:] else None)}
+                    "--mesh": lambda dev: phase_mesh(dev, sys.argv[2] if sys.argv[2:] else None),
+                    "--mesh-training": phase_mesh_training}
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--mesh-training-rank"]:
+        sys.exit(mt_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(child_main(CHILD_PHASES[sys.argv[1]]) if sys.argv[1:] and sys.argv[1] in CHILD_PHASES else main())

@@ -11,8 +11,10 @@ times an entry, which cancel, in another order); the collapse's plain version ag
 Pallas kernel (interpret mode) rtol 1e-5, atol 1e-5 (f32 sums of up to ~120
 unit-normal terms, in slot order against the Pallas scan's tree: a few
 units of 2⁻²⁴ times the terms' total); ``Trainer`` params after adam
-steps atol 2e-6 (each step moves a weight by at most lr = 1e-2, and an entry
-whose gradient sits near 0 in f32 noise may take another sign of ±lr·ε).
+steps under the Adam rule of PERF.md §2 (no entry off by more than
+2·steps·lr, at most 0.1% off by more than 1e-5: each step moves a weight by
+at most lr = 1e-2, and an entry whose gradient sits near 0 in f32 noise may
+take the other sign).
 """
 
 import dataclasses
@@ -287,17 +289,26 @@ def test_run_collapse_rows_rejects_bad_inputs(bad):
 def _trainer_batches(seed=0, steps=6, B=16):
     rng = np.random.default_rng(seed)
     for _ in range(steps):
-        users = rng.integers(0, 32, B).astype(np.int32)
-        yield {"users": users, "items": (users % 32).astype(np.int32)}
+        users = rng.integers(-40, 40, B).astype(np.int32)  # past both ends of the 32 rows
+        users[5] = PAD_ID
+        items = (users % 32).astype(np.int32)
+        items[[2, 9]] = (32, -33)
+        yield {"users": users, "items": items}
+
+
+ADAM_ATOL, ADAM_SHARE = 1e-5, 1e-3  # the Adam rule (PERF.md §2)
 
 
 def test_trainer_steps_follow_the_jax_trainer(mesh8):
-    """tests/test_models_training.py::TestTrainer's two-tower model, loss
-    and batches through both Trainers (JAX's on the conftest mesh, tables
-    sharded over 'model'): adam 1e-2, params after every step. Ids stay in
-    range, as that test's do: the id rules are held against ``jax.grad``
-    above, and JAX's step partitioned over the mesh drops no gradient of an
-    id past the end (off ``jax.grad`` by ~2·lr on those rows)."""
+    """tests/test_models_training.py::TestTrainer's two-tower model and loss
+    through both Trainers (JAX's on the conftest mesh, tables sharded over
+    'model'): adam 1e-2, params after every step, with ids past both ends
+    and PAD_ID: JAX's partitioned step keeps ``jax.grad``'s index rule
+    (tests/test_torch_mesh_training.py's fault-5 tests), so the port's one
+    device follows it under the Adam rule: no entry off by more than
+    2·steps·lr, at most 0.1% off by more than 1e-5 (Adam's first step is
+    ±lr·sign(g): an entry whose gradient cancels to f32 noise may take the
+    other sign)."""
     cfg, model, params, port = _two_tower(hidden=(8,), users=32, items=32, dim=8)
 
     def jax_loss(p, batch):
@@ -311,14 +322,15 @@ def test_trainer_steps_follow_the_jax_trainer(mesh8):
     jt = JaxTrainer(jax_loss, params, mesh8, [(r"(user|item)_table", P("model", None)), (r".*", P())],
                     JaxTrainerConfig(learning_rate=1e-2))
     pt = Trainer(port_loss, port, TrainerConfig(learning_rate=1e-2), device="cpu")
-    for batch in _trainer_batches():
+    for step, batch in enumerate(_trainer_batches(), 1):
         want = jt.train_step(batch)
         got = pt.train_step(batch)
         np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=RTOL)
         got_p = _flat(two_tower.params_to_flax(pt.model.state_dict())["params"])
         want_p = _flat(jax.tree_util.tree_map(np.asarray, jt.params)["params"])
-        for k in want_p:
-            np.testing.assert_allclose(got_p[k], want_p[k], rtol=0, atol=2e-6, err_msg=k)
+        diffs = np.concatenate([np.abs(got_p[k] - want_p[k]).reshape(-1) for k in want_p])
+        assert diffs.max() <= 2 * step * 1e-2, diffs.max()
+        assert (diffs > ADAM_ATOL).mean() <= ADAM_SHARE, (diffs > ADAM_ATOL).sum()
     assert all(p.requires_grad for p in pt.model.parameters())  # no table is frozen
 
 

@@ -90,10 +90,14 @@ def test_params_round_trip_is_identity():
 
 
 def test_explicit_lookup_raises():
-    with pytest.raises(NotImplementedError):
-        two_tower.TwoTower(two_tower.TwoTowerConfig(U, N, explicit_lookup=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        twhin.Twhin(twhin.TwhinConfig(U, N, explicit_lookup=True), device="cpu")
+    """explicit_lookup reads through the row exchange under ``get_mesh()``:
+    with no process group there is no mesh, and the forward raises
+    (tests/test_torch_mesh_training.py runs it on gloo ranks)."""
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        two_tower.TwoTower(two_tower.TwoTowerConfig(U, N, explicit_lookup=True), device="cpu")(ids, ids)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        twhin.Twhin(twhin.TwhinConfig(U, N, explicit_lookup=True), device="cpu")(ids, ids, ids)
 
 
 def _items_with_ties(seed=3):

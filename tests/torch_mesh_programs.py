@@ -9,6 +9,9 @@ by case. Imports no JAX: it runs in the rank processes.
 
 from __future__ import annotations
 
+import copy
+from typing import Any, NamedTuple
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -37,6 +40,8 @@ def _np(x):
         return x.detach().cpu().numpy()
     if isinstance(x, dict):
         return {k: _np(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_np(v) for v in x))
     if isinstance(x, (tuple, list)):
         return type(x)(_np(v) for v in x)
     return x
@@ -318,3 +323,250 @@ def sharded_search(inputs):
         out[f"root/{key}"] = (ids, scores, [t.tier for t in per_tier])
         out[f"pages/{key}"] = list(root.paginate(q, page_size=16, max_pages=6))
     return out
+
+
+# -- tests/test_torch_partition.py and tests/test_torch_mesh_training.py --------
+
+# the three models with partition rules, at small widths (the tests draw their
+# flax params with JAX's init and pass them in)
+SMALL = {
+    "masknet": dict(num_features=24, num_heads=3, mask_blocks=2, block_dim=8, aggregation_dim=4, head_hidden=(8, 4),
+                    dtype="float32"),
+    "two_tower": dict(num_users=32, num_items=64, embed_dim=8, tower_hidden=(16,), temperature=0.1),
+    "twhin": dict(num_users=32, num_items=64, embed_dim=8, temperature=1.0),
+}
+TRAIN_SHAPES = ((2, 2), (4, 1), (1, 4))
+
+
+class Pair(NamedTuple):
+    """A NamedTuple in a partitioned tree: its leaves are named by field."""
+
+    left: Any
+    right: Any
+
+
+def port_model(kind, flax_params, explicit=False):
+    """(the port's model of ``kind`` on the CPU holding ``flax_params``, its
+    partition rules)."""
+    from the_algorithm_tpu_torch.models import masknet, twhin, two_tower
+
+    if kind == "masknet":
+        model = masknet.MaskNet(masknet.MaskNetConfig(**SMALL[kind]), device="cpu")
+        model.load_state_dict(masknet.params_from_flax(flax_params))
+        return model, masknet.PARTITION_RULES
+    mod, cfg = (two_tower, two_tower.TwoTowerConfig) if kind == "two_tower" else (twhin, twhin.TwhinConfig)
+    model = (mod.TwoTower if kind == "two_tower" else mod.Twhin)(cfg(**SMALL[kind], explicit_lookup=explicit),
+                                                                  device="cpu")
+    model.load_state_dict(mod.params_from_flax(flax_params))
+    return model, mod.PARTITION_RULES
+
+
+def port_loss(kind):
+    """The loss_fn each model trains with (the tests' JAX losses' twins)."""
+    from the_algorithm_tpu_torch.models import masknet, twhin, two_tower
+
+    if kind == "masknet":
+        return lambda m, b: (masknet.multi_task_loss(m(b["x"]), b["y"]), {})
+    if kind == "two_tower":
+        return lambda m, b: (two_tower.in_batch_softmax_loss(
+            *m(b["users"], b["items"]), SMALL[kind]["temperature"], b["items"]), {})
+    return lambda m, b: (twhin.twhin_loss(*m(b["users"], b["relations"], b["items"]), b["items"],
+                                          SMALL[kind]["temperature"]), {})
+
+
+def partition(inputs):
+    from the_algorithm_tpu_torch.core import partition as part
+
+    out = {}
+    for (d, mm), m in build_meshes(TRAIN_SHAPES).items():
+        if m is None:
+            continue
+        key = f"{d}x{mm}"
+        for kind in SMALL:
+            model, rules = port_model(kind, inputs["params"][kind])
+            specs = part.shard_module(model, m, rules)
+            out[f"{kind}/{key}"] = {
+                "specs": {n: tuple(s) for n, s in specs.items()},
+                "blocks": {n: _np(p) for n, p in model.named_parameters()},
+                "gathered": {n: _np(part.gather_block(p, m, specs[n])) for n, p in model.named_parameters()},
+            }
+        specs = part.match_partition_rules(inputs["tree_rules"], inputs["tree"])
+        out[f"tree/{key}"] = _np(part.shard_tree(inputs["tree"], m, specs))
+        out[f"indivisible/{key}"] = _error(lambda: part.local_block(np.zeros((6, 2)), m, part.P(("data", "model"))))
+    return out
+
+
+# Trainer runs: (model, explicit_lookup, TrainerConfig fields, mesh shapes)
+TRAIN_CASES = {
+    "two_tower": ("two_tower", False, dict(learning_rate=1e-2), ("2x2", "4x1", "1x4")),
+    "two_tower_x": ("two_tower", True, dict(learning_rate=1e-2), ("2x2", "4x1", "1x4")),
+    "twhin_x": ("twhin", True, dict(learning_rate=1e-2), ("2x2", "4x1", "1x4")),
+    "masknet": ("masknet", False, dict(learning_rate=1e-2), ("2x2", "4x1", "1x4")),
+    "two_tower_x_clip": ("two_tower", True, dict(learning_rate=1e-2, max_grad_norm=0.2), ("2x2",)),
+    "masknet_clip": ("masknet", False, dict(learning_rate=1e-2, max_grad_norm=0.2), ("1x4",)),
+    "twhin_adagrad": ("twhin", False, dict(learning_rate=5e-2, optimizer="adagrad"), ("1x4",)),
+    "two_tower_x_sgd": ("two_tower", True, dict(learning_rate=5e-2, optimizer="sgd"), ("4x1",)),
+}
+EVAL_METRICS = (0.5, 0.7, 0.6, 0.65, 0.8, 0.9)  # rank 0's evals: best at the 2nd, stale at the 3rd and 4th
+
+
+def _optimizer_state(tr):
+    names = {p: n for n, p in tr.model.named_parameters()}
+    return {names[p]: {k: _np(v) for k, v in st.items() if k != "count"} for p, st in tr.optimizer.state.items()}
+
+
+def _grads(tr, batch):
+    """The Trainer's gradients of one batch after its gradient rule, gathered
+    into global arrays (no step taken)."""
+    from the_algorithm_tpu_torch.core import partition as part
+
+    tr.optimizer.zero_grad(set_to_none=True)
+    b = tr.shard_batch(batch)
+    with meshlib.local_mesh(tr.mesh), part.batch_split(tr.mesh, tr.batch_axes):
+        loss, _ = tr.loss_fn(tr.model, b)
+    loss.backward()
+    tr._reduce_grads()
+    return {n: _np(part.gather_block(p.grad, tr.mesh, tr.specs[n])) for n, p in tr.model.named_parameters()}
+
+
+def _fault5(inputs, m):
+    """Finding 1 and 3's table gradients of Σ w_i·t[ids_i]: the whole table
+    read by table_read and the table sharded P('model', None) read by
+    lookup, ids split over 'data'; the row exchange, ids split over both
+    axes. Each summed over 'data' (the Trainer's share of the rule)."""
+    from the_algorithm_tpu_torch.ops.gather import table_read
+    from the_algorithm_tpu_torch.parallel import sharded_table as st
+
+    t, ids, w = (torch.from_numpy(inputs[k]) for k in ("f5_table", "f5_ids", "f5_w"))
+    n = t.shape[0]
+    ids_d, w_d = (shard_rows(x, m, over=(DATA_AXIS,), pad=False) for x in (ids, w))
+    ids_j, w_j = (shard_rows(x, m, over=(DATA_AXIS, MODEL_AXIS), pad=False) for x in (ids, w))
+    out = {}
+    whole = t.clone().requires_grad_()
+    (w_d[:, None] * table_read(whole, ids_d)).sum().backward()
+    out["table_read"] = _np(m.all_reduce_(whole.grad, DATA_AXIS))
+    local = shard_rows(t, m).requires_grad_()
+    (w_d[:, None] * st.lookup(m, st.ShardedTable(local, n), ids_d)).sum().backward()
+    out["lookup"] = _np(m.all_reduce_(local.grad, DATA_AXIS))
+    local = shard_rows(t, m).requires_grad_()
+    rows = st.lookup_collective(st.ShardedTable(local, n), ids_j, m)
+    (w_j[:, None] * rows).sum().backward()
+    out["collective_rows"] = _np(rows)
+    out["collective"] = _np(m.all_reduce_(local.grad, DATA_AXIS))
+    local = shard_rows(t, m).requires_grad_()  # capacity 1: each requester keeps one id an owner, the rest train nothing
+    (st.lookup_collective(st.ShardedTable(local, n), ids_j, m, capacity=1)).sum().backward()
+    out["collective_cap1"] = _np(m.all_reduce_(local.grad, DATA_AXIS))
+    return out
+
+
+def mesh_training(inputs):
+    import os
+
+    from the_algorithm_tpu_torch.training.data_record_trainer import DataRecordTrainer, DataRecordTrainerConfig
+    from the_algorithm_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    meshes = {f"{d}x{mm}": m for (d, mm), m in build_meshes(TRAIN_SHAPES).items()}
+    rank = dist.get_rank()
+    out = {}
+
+    def trainer(kind, explicit, cfg, m, **kw):
+        model, rules = port_model(kind, inputs["params"][kind], explicit)
+        return Trainer(port_loss(kind), model, TrainerConfig(**cfg), mesh=m, partition_rules=rules, **kw)
+
+    for key, m in meshes.items():
+        if m is None:
+            continue
+        if key in ("2x2", "1x4"):
+            out[f"fault5/{key}"] = _fault5(inputs, m)
+        for case, (kind, explicit, cfg, keys) in TRAIN_CASES.items():
+            if key not in keys:
+                continue
+            tr = trainer(kind, explicit, cfg, m)
+            losses = [float(tr.train_step(b)["loss"]) for b in inputs["batches"][kind]]
+            out[f"{case}/{key}"] = {"loss": losses, "params": {n: _np(p) for n, p in tr.model.named_parameters()},
+                                    "state": _optimizer_state(tr)}
+            if case == "two_tower_x" and key == "2x2":  # every rank exports; the first writes the file
+                flat = tr.export(os.path.join(inputs["dir"], "export", "1"), extra={"note": np.arange(3)})
+                out["export"] = flat if rank == 0 else None
+        for kind in ("two_tower", "twhin"):
+            if key in ("2x2", "1x4"):
+                tr = trainer(kind, True, dict(optimizer="sgd"), m)
+                b = inputs["batches"][kind][0]
+                names = ("users", "items") if kind == "two_tower" else ("users", "relations", "items")
+                sb = tr.shard_batch(b)
+                with meshlib.local_mesh(m), torch.no_grad():
+                    out[f"explicit_fwd/{kind}/{key}"] = _np(tr.model(*(sb[k] for k in names)))
+                out[f"explicit_grad/{kind}/{key}"] = _grads(tr, b)
+    m = meshes["4x1"]
+    if m is not None:  # each rank feeds its own quarter of the batch
+        tr = trainer("two_tower", False, TRAIN_CASES["two_tower"][2], m, local_batches=True)
+        blocks = [{k: v[rank * 4:(rank + 1) * 4] for k, v in b.items()} for b in inputs["batches"]["two_tower"]]
+        out["local/4x1"] = {"loss": [float(tr.train_step(b)["loss"]) for b in blocks],
+                            "params": {n: _np(p) for n, p in tr.model.named_parameters()}}
+    m = meshes["2x2"]
+    if m is not None:
+        ckpt = os.path.join(inputs["dir"], "ckpt")
+        cfg = dict(learning_rate=1e-2, checkpoint_dir=ckpt, keep_checkpoints=2)
+        tr = trainer("two_tower", True, cfg, m)
+        batches = inputs["batches"]["two_tower"]
+        for b in batches[:2]:
+            tr.train_step(b)
+        tr.save()
+        saved = (tr.model.state_dict(), tr.optimizer.state_dict())
+        saved = (copy.deepcopy(saved[0]), copy.deepcopy(saved[1]))
+        tr.train_step(batches[2])
+        tr.restore(2)
+        fresh = trainer("two_tower", True, cfg, m)
+        fresh.restore()
+        same = [tr.step == fresh.step == 2]
+        for t in (tr, fresh):
+            same.append(all(torch.equal(v, saved[0][k]) for k, v in t.model.state_dict().items()))
+            st = t.optimizer.state_dict()["state"]
+            same.append(all(torch.equal(v, saved[1]["state"][i][k]) for i, s in st.items() for k, v in s.items()))
+        tr.train_step(batches[2])
+        fresh.train_step(batches[2])
+        same.append(all(torch.equal(a, b) for a, b in zip(tr.model.parameters(), fresh.model.parameters())))
+        out["ckpt"] = {"same": same, "steps": tr.checkpoint_steps()}
+        # fit with the prefetch feeder and an eval whose metric differs by rank: rank 0's counts everywhere
+        evals = iter(EVAL_METRICS if rank == 0 else EVAL_METRICS[::-1])
+        cfg = dict(learning_rate=1e-2, eval_metric="m", early_stopping_patience=2)
+        tr = trainer("two_tower", False, cfg, m)
+        got = tr.fit(iter(batches * 4), num_steps=12, eval_fn=lambda model: {"m": next(evals)}, eval_every=2)
+        out["fit"] = {"step": tr.step, "best": tr.best_or_latest_step(), "m": got["m"]}
+    m = meshes["1x4"]
+    if m is not None:  # saved on 2x2: another mesh shape
+        tr = trainer("two_tower", True, dict(checkpoint_dir=os.path.join(inputs["dir"], "ckpt")), m)
+        out["ckpt_other_mesh"] = _error(lambda: tr.restore(2))
+    m = meshes["2x2"]
+    if m is not None:
+        out["drt"] = _drt(inputs, m, DataRecordTrainer, DataRecordTrainerConfig, TrainerConfig)
+    return out
+
+
+def _drt(inputs, m, DataRecordTrainer, DataRecordTrainerConfig, TrainerConfig):
+    """The light ranker's DataRecordTrainer on a mesh: 40 adagrad steps of the
+    test's files (tests/test_torch_data_record_trainer.py's lifecycle)."""
+    from the_algorithm_tpu_torch.core.partition import P
+    from the_algorithm_tpu_torch.data import datarecord
+    from the_algorithm_tpu_torch.models import light_ranker
+    from the_algorithm_tpu_torch.ops import hashed_lr
+    from the_algorithm_tpu_torch.training import data_record_trainer as drt
+
+    d = inputs["drt"]
+    cfg = light_ranker.LightRankerConfig(n_bins=8, output_bits=12)
+    dataset = datarecord.TRecDataset(d["paths"], seed=0)
+    hd = drt.calibrate_from_files(dataset, d["vocab"], cfg.n_bins, cfg.output_bits, max_records=1024)
+    transform = datarecord.hashed_lr_transform(d["vocab"], hd.bins.bin_vals, cfg.output_bits, max_width=12,
+                                               label_vocab=d["label_vocab"])
+
+    def batch_fn(raw):
+        return (hashed_lr.SparseBatch(raw["indices"], raw["sparse_values"], raw["sparse_mask"]), raw["labels"][:, 0])
+
+    trainer = DataRecordTrainer(
+        lambda model, b: (light_ranker.loss_fn(model, b[0], b[1], l2=cfg.l2), {}),
+        light_ranker.init_params(cfg, device="cpu"), transform, batch_fn,
+        DataRecordTrainerConfig(batch_size=256, n_bins=cfg.n_bins, output_bits=cfg.output_bits,
+                                trainer=TrainerConfig(learning_rate=0.5, optimizer="adagrad")),
+        device="cpu", mesh=m, partition_rules=[(r".*", P())])
+    got = trainer.fit_from_files(dataset, num_steps=40)
+    return {"weights": _np(trainer.params.weights), "bias": _np(trainer.params.bias), "loss": got["loss"]}

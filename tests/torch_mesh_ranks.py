@@ -96,6 +96,7 @@ def _rank_main(program: str, rank: int, world: int, work: str) -> None:
                             world_size=world, timeout=timedelta(seconds=TIMEOUT_S))
     try:
         out = getattr(torch_mesh_programs, program)(inputs)
+        dist.barrier()  # no rank tears the group down while a peer's last collective is in flight
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"out{rank}.pkl"), "wb") as f:

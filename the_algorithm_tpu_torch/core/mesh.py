@@ -36,6 +36,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+JOINT_AXES = (DATA_AXIS, MODEL_AXIS)  # both, the first major: a rank's place in the whole mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +122,31 @@ class Mesh:
         dist.all_reduce(out, op=dist.ReduceOp.MIN, group=self.group(axis))
         return out
 
+    def size(self, axes) -> int:
+        """The ranks along ``axes`` (an axis name or a tuple of them) taken jointly."""
+        n = 1
+        for a in _axes(axes):
+            n *= self.shape[a]
+        return n
+
+    def all_reduce_(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Sum ``x`` in place over ``axes`` (a name or a tuple), one
+        all-reduce an axis longer than 1; an axis of one rank costs nothing."""
+        for a in _axes(axes):
+            if self.shape[a] > 1:
+                dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group(a))
+        return x
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (a sum over both axes)."""
+        self.all_reduce_(torch.zeros(1, device=self.device), JOINT_AXES)
+
+    def from_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The mesh's first rank's ``x`` on every rank: zeros elsewhere,
+        then a sum over both axes (exact)."""
+        out = x.clone() if self.position(JOINT_AXES) == 0 else torch.zeros_like(x)
+        return self.all_reduce_(out, JOINT_AXES)
+
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``lax.all_to_all(x, axis, 0, 0)`` of an [E, ...] tensor: block e
         goes to the rank at coordinate e, and block e of the result came
@@ -129,6 +155,82 @@ class Mesh:
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group(axis))
         return out
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+# -- collectives under autograd ------------------------------------------------
+#
+# XLA's partitioner inserts these where a global program meets sharded
+# operands; a rank's program states them. Each backward is the transpose of
+# its forward over the ranks that share the work: a gather's is a sum of
+# the cotangents where the ranks used different rows, and only this rank's
+# slice where the work after the gather is the same on every rank.
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.rows = mesh, axes, x.shape[0]
+        for a in reversed(axes):  # the minor axis first: blocks land first-axis-major
+            x = mesh.all_gather(x, a, dim=0)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh = ctx.mesh
+        d = mesh.all_reduce_(dy.contiguous().clone(), ctx.axes)
+        start = mesh.position(ctx.axes) * ctx.rows
+        return d[start:start + ctx.rows], None, None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Every rank's ``x`` along dim 0 over ``axes`` (the first axis major:
+    the global batch from its ``PartitionSpec((axes...))`` blocks). Its
+    backward sums the cotangent over ``axes`` and keeps this rank's rows: the
+    ranks used each other's rows in different work (an in-batch loss's
+    negatives). On an axis of one rank it is ``x`` itself."""
+    axes = tuple(a for a in _axes(axes) if mesh.shape[a] > 1)
+    return _GatherRows.apply(x, mesh, axes) if axes else x
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.cols = mesh, axis, x.shape[-1]
+        return mesh.all_gather(x, axis, dim=-1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        start = ctx.mesh.coord(ctx.axis) * ctx.cols
+        return dy[..., start:start + ctx.cols], None, None
+
+
+def gather_columns(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """Every rank's column block of ``x`` along the last dim over ``axis``.
+    Its backward keeps this rank's columns of the cotangent, not a sum: the
+    work after the gather is the same on every rank of ``axis``."""
+    return _GatherColumns.apply(x, mesh, axis) if mesh.shape[axis] > 1 else x
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.mesh.all_reduce_(dy.contiguous().clone(), ctx.axis), None, None
+
+
+def sum_grad(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """``x`` itself, whose backward sums the cotangent over ``axis``: an
+    input the same on every rank of ``axis`` that each rank multiplies by its
+    own column block (each rank's cotangent is one block's share)."""
+    return _SumGrad.apply(x, mesh, axis) if mesh.shape[axis] > 1 else x
 
 
 def make_mesh(

@@ -1,8 +1,7 @@
 """MaskNet multi-task heavy ranker — the recap ranking model.
 
 Counterpart of ``the_algorithm_tpu/models/masknet.py``: the forward, the
-weighted head score and the multi-task loss (the partition rules wait for
-the multi-device port).
+weighted head score, the multi-task loss and the partition rules.
 Parallel MaskNet (Wang et al. 2021, arXiv:2102.07619): G instance-guided
 mask blocks over one layer-normed input, fused into two wide products
 F→G·A (mask aggregation) and F→G·D (hidden branches), a G-batched A→D mask
@@ -17,6 +16,16 @@ parameter, as flax's does.
 module's ``state_dict``, so both compute the same function on the same
 weights; :func:`params_to_flax` is its inverse, the names and layouts an
 export writes.
+
+Under :data:`PARTITION_RULES` (the JAX package's, verbatim) on a mesh, the
+wide products ``mask_agg``, ``hidden`` and ``trunk_0`` keep this rank's
+output columns (``P(None, 'model')`` on a flax kernel: dim 0 of the torch
+weight). The forward multiplies by its columns and gathers them over
+'model' before anything reads across columns (``hidden_ln``'s groups may be
+cut), then adds the replicated bias; the gather's backward keeps this
+rank's columns, and the product's input sums its cotangent over 'model'
+(``core/mesh.gather_columns`` and ``sum_grad``). A whole weight takes the
+single-device path, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from the_algorithm_tpu_torch.core.device import resolve
+from the_algorithm_tpu_torch.core.mesh import MODEL_AXIS, gather_columns, get_mesh, sum_grad
+from the_algorithm_tpu_torch.core.partition import P
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
 
@@ -67,6 +78,8 @@ class GroupLayerNorm(nn.Module):
     and affine run in f32; the result is cast to ``dtype``. Built on the card
     unless ``device`` names another."""
 
+    FLAX_SCALE = True  # its weight is flax's ``scale``
+
     def __init__(self, groups: int, dim: int, dtype: torch.dtype, device=None):
         super().__init__()
         device = _device(device)
@@ -84,6 +97,8 @@ class MaskNet(nn.Module):
     logits [B, H] f32. Parameters are f32; ``config.dtype`` sets the
     compute type of the products. Built on the card unless ``device`` names
     another; with no card and no ``device``, it raises."""
+
+    FLAX_COLLECTION = "params"  # its JAX names: core/partition.flax_layout
 
     def __init__(
         self,
@@ -125,21 +140,29 @@ class MaskNet(nn.Module):
         G, D, A = cfg.mask_blocks, cfg.block_dim, cfg.aggregation_dim
         x = self.input_ln(features.float()).to(dt)
 
-        agg = F.relu(F.linear(x, self.mask_agg.weight.to(dt), self.mask_agg.bias.to(dt)))
+        agg = F.relu(self._product(x, self.mask_agg, G * A))
         agg = agg.reshape(-1, G, A)
         mask = torch.einsum("bga,gad->bgd", agg, self.mask_proj.to(dt)) + self.mask_proj_bias.to(dt)
 
-        hidden = F.linear(x, self.hidden.weight.to(dt)).reshape(-1, G, D)
+        hidden = self._product(x, self.hidden, G * D).reshape(-1, G, D)
         hidden = self.hidden_ln(hidden)
         h = F.relu(self.out_ln(mask * hidden)).reshape(-1, G * D)
         for lin in self.trunk:
-            h = F.relu(F.linear(h, lin.weight.to(dt), lin.bias.to(dt)))
+            h = F.relu(self._product(h, lin, lin.out_features))
         return self.heads(h.float())
 
-    def flax_params(self) -> Dict[str, Dict]:
-        """This module's parameters under the JAX package's names and
-        layouts (:func:`params_to_flax`): what an export writes."""
-        return params_to_flax(self.state_dict())
+    def _product(self, x: torch.Tensor, lin: nn.Linear, width: int) -> torch.Tensor:
+        """``lin(x)`` in the compute type; a weight holding this rank's
+        block of its ``width`` output columns (:data:`PARTITION_RULES`)
+        multiplies by them, gathers the columns over 'model', then adds the
+        replicated bias."""
+        dt = self.config.compute_dtype
+        bias = None if lin.bias is None else lin.bias.to(dt)
+        if lin.weight.shape[0] == width:
+            return F.linear(x, lin.weight.to(dt), bias)
+        mesh = get_mesh()
+        y = gather_columns(F.linear(sum_grad(x, mesh, MODEL_AXIS), lin.weight.to(dt)), mesh, MODEL_AXIS)
+        return y if bias is None else y + bias
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -252,6 +275,17 @@ def multi_task_loss(
         losses = losses * mask
         return torch.sum(losses) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(losses)
+
+
+PARTITION_RULES = [
+    # wide fused kernels shard over 'model' on the output dim; patterns are
+    # anchored so future modules whose paths merely contain these names
+    # don't accidentally match
+    (r"(^|/)hidden/kernel$", P(None, "model")),
+    (r"(^|/)mask_agg/kernel$", P(None, "model")),
+    (r"(^|/)trunk_0/kernel$", P(None, "model")),
+    (r".*", P()),
+]
 
 
 def optax_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

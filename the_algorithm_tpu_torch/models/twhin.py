@@ -8,6 +8,12 @@ Every table read goes through :func:`~the_algorithm_tpu_torch.models.
 two_tower.table_rows` (``row_gather`` with JAX's index rule, and under
 autograd the D-wide run collapse's dense table gradient); the user, item and
 relation tables are all trainable.
+
+On a mesh the user and item tables hold this rank's row block
+(:data:`PARTITION_RULES`) and are read as two-tower's are
+(``two_tower.read_rows``: across the blocks, or with ``explicit_lookup``
+through the row exchange for this rank's block of the joint batch); the
+small relation table stays whole on every rank and keeps ``table_rows``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ import torch
 from torch import nn
 
 from the_algorithm_tpu_torch.core.device import resolve
-from the_algorithm_tpu_torch.models.two_tower import _t, in_batch_softmax_loss, init_table, table_rows
+from the_algorithm_tpu_torch.core.mesh import JOINT_AXES
+from the_algorithm_tpu_torch.core.partition import P
+from the_algorithm_tpu_torch.models.two_tower import _t, in_batch_softmax_loss, init_table, read_rows, table_rows
 
 RELATIONS = (
     "follows", "favorites", "replies", "retweets", "mentions", "clicks",
@@ -33,7 +41,9 @@ class TwhinConfig:
     embed_dim: int = 128
     num_relations: int = len(RELATIONS)
     temperature: float = 1.0
-    # the JAX package's all-to-all row exchange (a mesh); not on one device
+    # explicit all-to-all row exchange for the big-table gathers (the
+    # PS-multiget analog; requires batch % mesh devices == 0 and table rows
+    # % model shards == 0). Default reads across the blocks.
     explicit_lookup: bool = False
 
 
@@ -41,20 +51,34 @@ class Twhin(nn.Module):
     """User, item and relation tables. Built on the card unless ``device``
     names another."""
 
+    FLAX_COLLECTION = "params"  # its JAX names: core/partition.flax_layout
+
     def __init__(self, config: TwhinConfig, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.explicit_lookup:
-            raise NotImplementedError("explicit_lookup needs a device mesh; the port runs on one device")
         dev = resolve(device, "Twhin")
         self.config = cfg = config
         self.user_table = init_table(cfg.num_users, cfg.embed_dim, dev, generator)
         self.item_table = init_table(cfg.num_items, cfg.embed_dim, dev, generator)
         self.relation_table = init_table(cfg.num_relations, cfg.embed_dim, dev, generator)
 
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes a training batch is split over."""
+        return JOINT_AXES if self.config.explicit_lookup else JOINT_AXES[:1]
+
     def forward(self, user_ids: torch.Tensor, relation_ids: torch.Tensor,
                 item_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(translated user embeddings e_u + t_r, item embeddings e_v), each [B, D]."""
-        return self.translate(user_ids, relation_ids), table_rows(self.item_table, item_ids)
+        """(translated user embeddings e_u + t_r, item embeddings e_v), each
+        [B, D]; on a mesh, of this rank's block of the batch."""
+        cfg = self.config
+        u = read_rows(self.user_table, cfg.num_users, user_ids, cfg.explicit_lookup)
+        v = read_rows(self.item_table, cfg.num_items, item_ids, cfg.explicit_lookup)
+        return u + table_rows(self.relation_table, relation_ids), v
+
+    def translate(self, user_ids: torch.Tensor, relation_ids: torch.Tensor) -> torch.Tensor:
+        """e_u + t_r for serving: two whole-table reads, one ``row_gather``
+        launch each."""
+        return table_rows(self.user_table, user_ids) + table_rows(self.relation_table, relation_ids)
 
     def translate(self, user_ids: torch.Tensor, relation_ids: torch.Tensor) -> torch.Tensor:
         """e_u + t_r: two table reads, one ``row_gather`` launch each."""
@@ -71,6 +95,13 @@ def twhin_loss(u_translated: torch.Tensor, v: torch.Tensor, item_ids: torch.Tens
 def entity_embeddings(model: Twhin, table: str = "item_table") -> torch.Tensor:
     """Export a table for ANN serving (consumed by ``TwHINANNEngine``)."""
     return getattr(model, table).detach()
+
+
+PARTITION_RULES = [
+    (r"user_table", P("model", None)),
+    (r"item_table", P("model", None)),
+    (r".*", P()),  # relation table is tiny → replicated
+]
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:

@@ -12,6 +12,23 @@ end clamps), and under autograd a dense [N, D] table gradient from the D-wide
 run collapse (an id outside the table gets none, as in JAX). Tables are
 trainable; serving reads them under ``torch.no_grad()`` or frozen.
 
+On a mesh (``training/trainer.py`` with :data:`PARTITION_RULES`) the tables
+hold this rank's row block, ``P('model', None)``:
+
+  - by default the forward reads ``table[ids]`` across the blocks
+    (``sharded_table.lookup``: JAX's index rule and gradient) for this
+    rank's 'data' block of the batch;
+  - with ``explicit_lookup`` the forward takes this rank's block of the
+    joint ('data', 'model') batch (:attr:`TwoTower.batch_axes`) and reads
+    through the all-to-all row exchange (``sharded_table.lookup_collective``
+    under ``get_mesh()``, which raises without one): ids are clipped, and
+    their gradient trains the clipped row, as in JAX.
+
+The in-batch loss then spans the global batch, as GSPMD's does: it gathers
+the item embeddings and ids over the batch's axes (:func:`in_batch_softmax_loss`).
+The serving methods (:meth:`TwoTower.user_embeddings`, ``item_embeddings``)
+read whole tables: a served model is built from an export's global arrays.
+
 :func:`params_from_flax` turns the JAX package's flax params into this
 module's ``state_dict``; :func:`params_to_flax` is its inverse.
 """
@@ -27,9 +44,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from the_algorithm_tpu_torch.core.device import resolve
+from the_algorithm_tpu_torch.core.mesh import JOINT_AXES, gather_rows, get_mesh
+from the_algorithm_tpu_torch.core.partition import P, current_batch_split
 from the_algorithm_tpu_torch.models.masknet import _lecun_normal_
 from the_algorithm_tpu_torch.ops import retrieval
 from the_algorithm_tpu_torch.ops.gather import table_read
+from the_algorithm_tpu_torch.parallel.sharded_table import ShardedTable, lookup, lookup_collective
 
 TABLE_STD = 0.02  # flax nn.initializers.normal(0.02)
 
@@ -42,13 +62,26 @@ class TwoTowerConfig:
     tower_hidden: Tuple[int, ...] = (128,)
     temperature: float = 0.05
     dtype: str = "float32"
-    # the JAX package's all-to-all row exchange (a mesh); not on one device
+    # explicit all-to-all row exchange for the table gathers (see
+    # parallel/sharded_table.lookup_collective); batch % devices == 0.
     explicit_lookup: bool = False
 
 
 # ``table[ids]`` as JAX's gather reads it, ids of any shape → ids.shape + (D,):
 # one row_gather launch, and the table's gradient when autograd records
 table_rows = table_read
+
+
+def read_rows(table: torch.Tensor, num_rows: int, ids: torch.Tensor, explicit: bool) -> torch.Tensor:
+    """A training forward's table read: a whole [num_rows, D] table through
+    :func:`table_rows`; this rank's row block of it across the mesh
+    (``get_mesh()``): the row exchange when ``explicit``, else the sum of
+    the blocks' reads, each with its JAX path's gradient."""
+    if explicit:
+        return lookup_collective(ShardedTable(table, num_rows), ids, get_mesh())
+    if table.shape[0] == num_rows:
+        return table_rows(table, ids)
+    return lookup(get_mesh(), ShardedTable(table, num_rows), ids)
 
 
 def init_table(rows: int, dim: int, device, generator: Optional[torch.Generator]) -> nn.Parameter:
@@ -84,10 +117,10 @@ class TwoTower(nn.Module):
     """User and item towers over id-embedding tables. Built on the card
     unless ``device`` names another."""
 
+    FLAX_COLLECTION = "params"  # its JAX names: core/partition.flax_layout
+
     def __init__(self, config: TwoTowerConfig, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.explicit_lookup:
-            raise NotImplementedError("explicit_lookup needs a device mesh; the port runs on one device")
         dev = resolve(device, "TwoTower")
         self.config = cfg = config
         self.user_table = init_table(cfg.num_users, cfg.embed_dim, dev, generator)
@@ -95,9 +128,18 @@ class TwoTower(nn.Module):
         self.user_tower = Tower(cfg.embed_dim, cfg.tower_hidden, cfg.embed_dim, device=dev, generator=generator)
         self.item_tower = Tower(cfg.embed_dim, cfg.tower_hidden, cfg.embed_dim, device=dev, generator=generator)
 
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes a training batch is split over."""
+        return JOINT_AXES if self.config.explicit_lookup else JOINT_AXES[:1]
+
     def forward(self, user_ids: torch.Tensor, item_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(user embeddings, item embeddings), each ``ids.shape + (D,)``."""
-        return self.user_embeddings(user_ids), self.item_embeddings(item_ids)
+        """(user embeddings, item embeddings), each ``ids.shape + (D,)``;
+        on a mesh, of this rank's block of the batch (:func:`read_rows`)."""
+        cfg = self.config
+        u = read_rows(self.user_table, cfg.num_users, user_ids, cfg.explicit_lookup)
+        v = read_rows(self.item_table, cfg.num_items, item_ids, cfg.explicit_lookup)
+        return self.user_tower(u), self.item_tower(v)
 
     def user_embeddings(self, user_ids: torch.Tensor) -> torch.Tensor:
         return self.user_tower(table_rows(self.user_table, user_ids))
@@ -113,15 +155,34 @@ def in_batch_softmax_loss(u: torch.Tensor, v: torch.Tensor, temperature: float,
     is another example's positive too is masked out of that example's
     negatives (accidental hits) with −1e9, not −inf (−inf poisons the
     softmax's gradient). The mean over the batch of −log softmax at the
-    diagonal."""
+    diagonal.
+
+    Under a sharded ``Trainer`` (``core/partition.batch_split``) ``u``, ``v``
+    and ``item_ids`` are this rank's block of the batch, and the negatives
+    are the global batch's, as in JAX: ``v`` and the ids are gathered over
+    the batch's axes (the gather's backward sums each block's cotangents
+    over the ranks), and the result is the mean over this rank's rows, whose
+    mean over the ranks (the Trainer's) is the global batch's loss."""
+    split = current_batch_split()
+    offset = 0
+    if split is not None:
+        mesh, axes = split
+        offset = mesh.position(axes) * v.shape[0]
+        v = gather_rows(v, mesh, axes)
+        if item_ids is not None:
+            item_ids = gather_rows(torch.as_tensor(item_ids, device=v.device), mesh, axes)
     logits = torch.matmul(u.float(), v.float().T) / temperature
-    B = logits.shape[0]
+    b, B = logits.shape
     if item_ids is not None:
         item_ids = torch.as_tensor(item_ids, device=logits.device)
-        eye = torch.eye(B, dtype=torch.bool, device=logits.device)
-        off_diag_dup = (item_ids[:, None] == item_ids[None, :]) & ~eye
+        if split is None:
+            eye = torch.eye(B, dtype=torch.bool, device=logits.device)
+        else:  # row i's own column is offset + i
+            rows = torch.arange(b, device=logits.device)
+            eye = rows[:, None] + offset == torch.arange(B, device=logits.device)[None, :]
+        off_diag_dup = (item_ids[offset:offset + b, None] == item_ids[None, :]) & ~eye
         logits = logits.masked_fill(off_diag_dup, -1e9)
-    return -torch.log_softmax(logits, dim=-1).diagonal().mean()
+    return -torch.log_softmax(logits, dim=-1).diagonal(offset).mean()
 
 
 def retrieve_top_k(query: torch.Tensor, items: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,6 +195,13 @@ def retrieve_top_k(query: torch.Tensor, items: torch.Tensor, k: int) -> Tuple[to
     scores = torch.matmul(query.float(), items.float().T)
     top_scores, top_ids = retrieval.top_k(scores, k)
     return top_ids.to(torch.int32), top_scores
+
+
+PARTITION_RULES = [
+    (r"user_table", P("model", None)),
+    (r"item_table", P("model", None)),
+    (r".*", P()),
+]
 
 
 def _t(x) -> torch.Tensor:

@@ -9,7 +9,8 @@ three-phase light-ranker flow (``deepbird/.../earlybird/train.py:39-118``):
      percentile bins (host-side, ≡ ``common_calibrators.py:265``);
   2. **train** — stream deterministic per-host batches (C++ block decode +
      bit-identical hashing, :mod:`the_algorithm_tpu_torch.data.datarecord`)
-     into the single-device :class:`~the_algorithm_tpu_torch.training.trainer.Trainer`;
+     into the :class:`~the_algorithm_tpu_torch.training.trainer.Trainer`, on
+     one device or, given a mesh and partition rules, data-parallel over it;
   3. **export** — write the params + calibration artifact into a
      ``serving.model_registry`` version dir (SavedModel-export analog),
      closing the train→serve loop.
@@ -77,7 +78,10 @@ class DataRecordTrainer:
     ``batch_fn`` adapts the raw per-batch numpy dict into whatever the
     loss_fn consumes (e.g. build a ``hashed_lr.SparseBatch`` of numpy
     arrays); it runs on host, once per batch, and the Trainer puts the result
-    on its device. Trains on the card unless given a ``device``.
+    on its device. Trains on the card unless given a ``device``; with
+    ``mesh`` and ``partition_rules`` (the JAX signature's, here optional)
+    over the mesh, every rank reading the same files and keeping its block
+    of each batch.
     """
 
     def __init__(
@@ -89,11 +93,14 @@ class DataRecordTrainer:
         config: DataRecordTrainerConfig = DataRecordTrainerConfig(),
         stats=None,
         device=None,
+        mesh=None,
+        partition_rules=None,
     ):
         self.config = config
         self.transform = transform
         self.batch_fn = batch_fn
-        self.trainer = Trainer(loss_fn, model, config=config.trainer, stats=stats, device=device)
+        self.trainer = Trainer(loss_fn, model, config=config.trainer, stats=stats, device=device, mesh=mesh,
+                               partition_rules=partition_rules)
 
     def input_batches(
         self, dataset: datarecord.TRecDataset,

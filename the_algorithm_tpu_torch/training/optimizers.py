@@ -25,11 +25,18 @@ before the update (g as it is while ‖g‖ < max, else g/‖g‖·max). Updates
 in place under ``no_grad`` with ``torch._foreach_*`` ops (the JAX package
 donates the state to XLA; it has no Pallas kernel here). Nothing syncs the
 host with the card.
+
+On a mesh (a sharded ``Trainer``) a parameter may be this rank's block of
+a global array (:meth:`_Optax.split_over`): the update is elementwise, so
+each rank updates its blocks and keeps their moments, sharded like them;
+only the global norm spans ranks: the replicated gradients' squares plus
+the blocks' squares summed over the axes that split them, one all-reduce a
+step.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -41,6 +48,14 @@ class _Optax(torch.optim.Optimizer):
     def __init__(self, params: Iterable, defaults: dict, max_grad_norm: Optional[float] = None):
         super().__init__(params, defaults)
         self.max_grad_norm = max_grad_norm
+        self.mesh = None
+        self.block_axes: Dict[torch.Tensor, Tuple[str, ...]] = {}
+
+    def split_over(self, mesh, block_axes: Dict[torch.Tensor, Tuple[str, ...]]) -> None:
+        """Tell the global-norm clip which params are blocks of a global
+        array and over which mesh axes (an axis of one rank left out)."""
+        self.mesh = mesh
+        self.block_axes = {p: tuple(a) for p, a in block_axes.items() if a}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -53,7 +68,9 @@ class _Optax(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             groups.append((group, params, [p.grad for p in params]))
         if self.max_grad_norm:
-            _clip_by_global_norm([g for _, _, grads in groups for g in grads], self.max_grad_norm)
+            pairs = [(p, g) for _, params, grads in groups for p, g in zip(params, grads)]
+            _clip_by_global_norm([g for _, g in pairs], self.max_grad_norm,
+                                 [self.block_axes.get(p, ()) for p, _ in pairs], self.mesh)
         for group, params, grads in groups:
             if params:
                 self._update(group, params, grads)
@@ -63,12 +80,24 @@ class _Optax(torch.optim.Optimizer):
         raise NotImplementedError
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                         axes: Optional[List[Tuple[str, ...]]] = None, mesh=None) -> None:
     """``optax.clip_by_global_norm`` in place: every g as it is while the
-    global norm is below ``max_norm``, else (g / norm) · max_norm."""
+    global norm is below ``max_norm``, else (g / norm) · max_norm. ``axes``:
+    for each g that is a block of a global array, the mesh axes that split
+    it; their squares are summed over those axes (one all-reduce an axis
+    set) and added to the replicated gradients'."""
     if not grads:
         return
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    axes = axes or [()] * len(grads)
+    norm2 = sum(torch.sum(g.float() * g.float()) for g, a in zip(grads, axes) if not a)
+    blocks: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for g, a in zip(grads, axes):
+        if a:
+            blocks.setdefault(a, []).append(g)
+    for a, gs in blocks.items():
+        norm2 = norm2 + mesh.all_reduce_(sum(torch.sum(g.float() * g.float()) for g in gs), a)
+    norm = torch.sqrt(norm2)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))

@@ -1,19 +1,50 @@
-"""The training loop on one device: eval, best step, early stopping,
-checkpoints, export.
+"""The training loop: eval, best step, early stopping, checkpoints, export;
+on one device or over a (data, model) mesh with the JAX package's partition
+rules.
 
 Counterpart of ``the_algorithm_tpu/training/trainer.py`` ≡ twml's Estimator
 wrapper (``twml/twml/trainers/trainer.py:131`` — checkpointing :150-413,
 ``learn``:946, ``train_and_evaluate``:1194). The JAX package's step is a
-donated ``jit`` over a mesh; here it is eager PyTorch on one device, the
-parameters an ``nn.Module`` and the optimizer one of
+donated ``jit`` over a mesh; here it is eager PyTorch, the parameters an
+``nn.Module`` and the optimizer one of
 :mod:`~the_algorithm_tpu_torch.training.optimizers` updating them in place.
-The mesh and partition rules wait for the multi-device port.
+
+Without a mesh the step runs on one device. With one (``core/mesh.py``:
+one process a device, every rank of the mesh running the same loop), the
+JAX ``Trainer``'s synchronous data parallelism with sharded parameters:
+
+  - params are placed by ``partition_rules`` (``core/partition.py``: the
+    JAX rules, matched on the JAX names): each rank keeps its blocks, and
+    the optimizer's state is sharded like them;
+  - each rank steps on its block of the global batch, split over the
+    model's batch axes (``partition.batch_axes_of``: ('data',), or the joint
+    ('data', 'model') for an explicit row exchange); ``loss_fn`` returns the
+    mean over that block (a whole-batch loss gathers what it needs itself,
+    ``partition.batch_split``), and the step's loss is their mean over the
+    ranks: the global batch's;
+  - **the gradient rule**: each parameter's gradient is summed over the mesh
+    axes that split the batch where that parameter is used, and over none
+    of the axes that shard the parameter itself, then divided by the number
+    of batch blocks (the mean of the blocks' means). So replicated tower
+    weights behind the explicit row exchange sum over both axes; tables
+    (their rows already routed to their owners within 'model') over
+    'data'; replicated MaskNet weights over 'data' only, because the model
+    ranks repeat the same batch. Work repeated on every 'model' rank is
+    never summed over 'model' (``torch.distributed.nn.functional.
+    all_reduce``'s backward would): the collectives under autograd
+    (``core/mesh.gather_rows``, ``gather_columns``, ``sum_grad``) state
+    their transposes. The sums are bucketed: one flat buffer for each set of
+    axes, one all-reduce an axis longer than one rank.
 
 Checkpoints are the port's own format: ``torch.save`` of the model's and
 the optimizer's ``state_dict`` in one file per step directory
-(``<checkpoint_dir>/<step>/state.pt``), the newest ``keep_checkpoints``
-kept. :meth:`Trainer.export` writes the flat-dict npz the JAX Trainer writes
-for the same model: the same names, shapes and layouts.
+(``<checkpoint_dir>/<step>/state.pt``; on a mesh each rank's blocks in
+``state.<rank>.pt``, rank its position in the mesh), the newest
+``keep_checkpoints`` kept. ``restore`` on a mesh of the same shape gives the
+same bits; reshaping a checkpoint to another mesh (which JAX's orbax does)
+is not ported. :meth:`Trainer.export` writes the flat-dict npz the JAX
+Trainer writes for the same model: the same names, shapes and layouts, from
+the global arrays (on a mesh the first rank writes it).
 """
 
 from __future__ import annotations
@@ -29,7 +60,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from the_algorithm_tpu_torch.core import partition
 from the_algorithm_tpu_torch.core.device import resolve
+from the_algorithm_tpu_torch.core.mesh import JOINT_AXES, Mesh, local_mesh
 from the_algorithm_tpu_torch.core.metrics import NullStats, StatsReceiver
 from the_algorithm_tpu_torch.training import optimizers
 
@@ -109,11 +142,36 @@ def _tensors(x: Any):
             yield from _tensors(v)
 
 
+def _host_block(x, index: int, n: int):
+    """Block ``index`` of ``n`` along dim 0 of every array of a batch
+    (numpy or tensors, in dicts, lists, tuples and NamedTuples)."""
+    if isinstance(x, (np.ndarray, torch.Tensor)):
+        if x.shape[0] % n:
+            raise ValueError(f"batch={x.shape[0]} not divisible by {n} blocks")
+        per = x.shape[0] // n
+        return x[index * per:(index + 1) * per]
+    if isinstance(x, dict):
+        return {k: _host_block(v, index, n) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_host_block(v, index, n) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host_block(v, index, n) for v in x)
+    return x
+
+
 class Trainer:
-    """Single-device trainer: ``loss_fn(model, batch) -> (loss, aux)``
-    differentiated by autograd, the optimizer of ``config``
-    (:func:`make_optimizer`), batches put on the model's device. It builds
-    on the card unless given a ``device``."""
+    """``loss_fn(model, batch) -> (loss, aux)`` differentiated by autograd,
+    the optimizer of ``config`` (:func:`make_optimizer`), batches put on the
+    model's device.
+
+    Without ``mesh``: one device, the card unless given a ``device``. With
+    ``mesh`` (the JAX signature's mesh and ``partition_rules``): ``model``
+    holds the global params, and each rank keeps its blocks under the rules
+    on ``mesh.device`` (see the module's docstring). ``local_batches``: the
+    batches a rank passes are already its block (JAX's multi-process
+    ``make_array_from_process_local_data`` path; ranks sharing a batch block
+    pass the same rows), not the global batch.
+    """
 
     def __init__(
         self,
@@ -122,41 +180,123 @@ class Trainer:
         config: TrainerConfig = TrainerConfig(),
         stats: Optional[StatsReceiver] = None,
         device=None,
+        mesh: Optional[Mesh] = None,
+        partition_rules: Optional[partition.PartitionRules] = None,
+        local_batches: bool = False,
     ):
         self.loss_fn = loss_fn
         self.config = config
         self.stats = stats or NullStats()
-        self.device = resolve(device, "Trainer")
-        self.model = model.to(self.device)
+        self.mesh = mesh
+        self.local_batches = local_batches
+        if mesh is None:
+            self.device = resolve(device, "Trainer")
+            self.model = model.to(self.device)
+        else:
+            self.device = mesh.device
+            self.model = model
+            self.specs = partition.shard_module(model, mesh, partition_rules or [(".*", partition.P())])
+            self.batch_axes = partition.batch_axes_of(model)
+            self.blocks = mesh.size(self.batch_axes)  # the batch blocks a step's loss averages
+            self._sum_axes = {}  # each param's gradient: the batch's axes that do not shard it
+            split = {}
+            for name, p in model.named_parameters():
+                own = partition.spec_axes(self.specs[name])  # a tuple: every rank takes the axes in one order
+                self._sum_axes[name] = tuple(a for a in self.batch_axes if a not in own and mesh.shape[a] > 1)
+                split[p] = tuple(a for a in own if mesh.shape[a] > 1)
         self.optimizer = make_optimizer(config, self.model.parameters())
+        if mesh is not None:
+            self.optimizer.split_over(mesh, split)
         self.step = 0
         self.best_step: Optional[int] = None
         self.best_metric: Optional[float] = None
 
+    def shard_batch(self, batch: Any) -> Any:
+        """A host batch on this trainer's device: on a mesh, this rank's
+        block over the batch's axes (the global batch given, unless
+        ``local_batches``)."""
+        if self.mesh is not None and not self.local_batches:
+            batch = _host_block(batch, self.mesh.position(self.batch_axes), self.blocks)
+        return put_batch(batch, self.device)
+
     def train_step(self, batch: Any) -> Dict[str, torch.Tensor]:
         """One step on a host or device batch; returns aux with ``loss``
-        (device tensors: reading one waits for the step)."""
-        batch = put_batch(batch, self.device)
+        (device tensors: reading one waits for the step). On a mesh every
+        rank calls it with the same global batch (or its own block, with
+        ``local_batches``); the loss and aux are the global batch's."""
+        return self._step(self.shard_batch(batch))
+
+    def _step(self, batch: Any) -> Dict[str, torch.Tensor]:
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss_fn(self.model, batch)
+        if self.mesh is None:
+            loss, aux = self.loss_fn(self.model, batch)
+        else:
+            with local_mesh(self.mesh), partition.batch_split(self.mesh, self.batch_axes):
+                loss, aux = self.loss_fn(self.model, batch)
         loss.backward()
+        if self.mesh is not None:
+            self._reduce_grads()
         self.optimizer.step()
         aux = dict(aux)
         aux["loss"] = loss.detach()
+        if self.mesh is not None and self.blocks > 1:
+            aux = self._batch_mean(aux)
         self.step += 1
         if self.step % self.config.log_every == 0:
             for k, v in aux.items():
                 self.stats.stat(f"train/{k}", float(v))
         return aux
 
+    def _reduce_grads(self) -> None:
+        """The gradient rule: each gradient summed over its axes (one flat
+        buffer an axis set and dtype), then all divided by the blocks."""
+        buckets: Dict[Tuple, list] = {}
+        grads = []
+        for name, p in self.model.named_parameters():
+            if p.grad is None:
+                continue
+            grads.append(p.grad)
+            if self._sum_axes[name]:
+                buckets.setdefault((self._sum_axes[name], p.grad.dtype), []).append(p.grad)
+        for (axes, _), gs in buckets.items():
+            flat = torch.cat([g.reshape(-1) for g in gs])
+            self.mesh.all_reduce_(flat, axes)
+            torch._foreach_copy_(gs, [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in gs]), gs)])
+        if self.blocks > 1:
+            torch._foreach_mul_(grads, 1.0 / self.blocks)
+
+    def _batch_mean(self, aux: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Each scalar of ``aux`` averaged over the batch blocks (one all-reduce)."""
+        keys = list(aux)
+        vals = torch.stack([torch.as_tensor(aux[k], dtype=torch.float32, device=self.device).reshape(())
+                            for k in keys])
+        vals = self.mesh.all_reduce_(vals, self.batch_axes) / self.blocks
+        return dict(zip(keys, vals.unbind()))
+
+    def _eval(self, eval_fn, model) -> Dict[str, float]:
+        """``eval_fn`` on every rank (under the mesh); on a mesh the first
+        rank's metrics, so every rank takes the same best-step and
+        early-stopping turns."""
+        if self.mesh is None:
+            return eval_fn(model)
+        with local_mesh(self.mesh):
+            ev = eval_fn(model)
+        keys = sorted(ev)
+        vals = self.mesh.from_first(torch.tensor([float(ev[k]) for k in keys], dtype=torch.float64,
+                                                 device=self.device))
+        return dict(zip(keys, vals.tolist()))
+
     def _prefetch(self, batches: Iterator[Any], depth: int) -> Iterator[Any]:
         """Overlapped host→device input feed: a feeder thread parses the next
-        batches and copies them to the device while the current step runs —
-        the tf.data input overlap of twml's DataRecordTrainer
+        batches, takes this rank's block on a mesh (:meth:`shard_batch`) and
+        copies them to the device while the current step runs — the tf.data
+        input overlap of twml's DataRecordTrainer
         (``data_record_trainer.py:533``). On the card the copies run on the
         feeder's own stream; the step's stream waits for each batch's copy
         and records its use of the batch's memory. A feeder error is raised
-        in the loop."""
+        in the loop. When the loop ends, it waits for the feeder to stop (it
+        finishes the batch in hand): a thread left in a torch call when the
+        process exits aborts it."""
         q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         sentinel = object()
         cuda = self.device.type == "cuda"
@@ -177,19 +317,20 @@ class Trainer:
                 for b in batches:
                     if cuda:
                         with torch.cuda.stream(stream):
-                            b = put_batch(b, self.device)
+                            b = self.shard_batch(b)
                             done = torch.cuda.Event()
                             done.record(stream)
                     else:
                         done = None
-                        b = put_batch(b, self.device)
+                        b = self.shard_batch(b)
                     if not put((b, done)):
                         return
                 put(sentinel)
             except BaseException as e:  # surface feeder errors in-loop
                 put((sentinel, e))
 
-        threading.Thread(target=feeder, daemon=True).start()
+        thread = threading.Thread(target=feeder, daemon=True)
+        thread.start()
         try:
             while True:
                 item = q.get()
@@ -206,6 +347,7 @@ class Trainer:
                 yield b
         finally:
             stop.set()
+            thread.join()
 
     def fit(
         self,
@@ -221,7 +363,8 @@ class Trainer:
         best-step/best-metric bookkeeping (and checkpoints improvements);
         ``early_stopping_patience`` evals without improvement end the loop.
         ``prefetch`` > 0 overlaps input parsing and the host→device copy
-        with the step (0 feeds synchronously).
+        with the step (0 feeds synchronously). On a mesh ``eval_fn`` runs on
+        every rank and the first rank's metrics count.
         """
         cfg = self.config
         last: Dict[str, Any] = {}
@@ -229,12 +372,13 @@ class Trainer:
         batches = iter(batches)
         if prefetch:
             batches = self._prefetch(batches, prefetch)
+        step = self._step if prefetch else self.train_step  # prefetched batches are placed already
         try:
             for _ in range(num_steps):
                 batch = next(batches)
-                last = self.train_step(batch)
+                last = step(batch)
                 if eval_fn is not None and eval_every and self.step % eval_every == 0:
-                    ev = eval_fn(self.model)
+                    ev = self._eval(eval_fn, self.model)
                     last.update(ev)
                     for k, v in ev.items():
                         self.stats.stat(f"eval/{k}", float(v))
@@ -275,47 +419,77 @@ class Trainer:
             raise ValueError("no checkpoint_dir configured")
         return os.path.abspath(self.config.checkpoint_dir)
 
+    def _state_file(self) -> str:
+        """This rank's file in a step directory."""
+        return "state.pt" if self.mesh is None else f"state.{self.mesh.position(JOINT_AXES)}.pt"
+
     def checkpoint_steps(self):
         """The steps saved under ``checkpoint_dir``, ascending."""
         root = self._ckpt_dir()
         if not os.path.isdir(root):
             return []
+        name = self._state_file()
         return sorted(int(d) for d in os.listdir(root)
-                      if d.isdigit() and os.path.exists(os.path.join(root, d, "state.pt")))
+                      if d.isdigit() and os.path.exists(os.path.join(root, d, name)))
 
     def latest_step(self) -> Optional[int]:
         steps = self.checkpoint_steps()
         return steps[-1] if steps else None
 
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
     def save(self) -> None:
         """Checkpoint the model and the optimizer at this step (once a step:
         a best-eval save and the cadence may fall on the same one), then
-        drop all but the newest ``keep_checkpoints``."""
+        drop all but the newest ``keep_checkpoints``. On a mesh every rank
+        calls it and writes its own blocks; the first rank makes the step's
+        directory appear once all have written."""
         root = self._ckpt_dir()
         if self.latest_step() == self.step:
             return
+        first = self.mesh is None or self.mesh.position(JOINT_AXES) == 0
         final = os.path.join(root, str(self.step))
         tmp = os.path.join(root, f".{self.step}.tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({"step": self.step, "model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict()}, os.path.join(tmp, "state.pt"))
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        for old in self.checkpoint_steps()[: -max(self.config.keep_checkpoints, 1)]:
-            shutil.rmtree(os.path.join(root, str(old)))
+        if first:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        self._barrier()
+        state = {"step": self.step, "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+        if self.mesh is not None:
+            state["mesh"] = dict(self.mesh.shape)
+        torch.save(state, os.path.join(tmp, self._state_file()))
+        self._barrier()
+        if first:
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            for old in self.checkpoint_steps()[: -max(self.config.keep_checkpoints, 1)]:
+                shutil.rmtree(os.path.join(root, str(old)))
+        self._barrier()
 
     def restore(self, step: Optional[int] = None) -> None:
-        """Load the checkpoint of ``step`` (the latest when None)."""
+        """Load the checkpoint of ``step`` (the latest when None); on a mesh
+        every rank loads its blocks, saved on a mesh of the same shape."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self._ckpt_dir()}")
-        state = torch.load(os.path.join(self._ckpt_dir(), str(step), "state.pt"), map_location=self.device)
+        state = torch.load(os.path.join(self._ckpt_dir(), str(step), self._state_file()), map_location=self.device)
+        if self.mesh is not None and state.get("mesh") != dict(self.mesh.shape):
+            raise ValueError(f"checkpoint of step {step} was saved on a {state.get('mesh')} mesh, not "
+                             f"{dict(self.mesh.shape)}: reshaping a checkpoint across mesh shapes is not ported")
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = step
 
     # -- export (SavedModel-export analog: the train→serve artifact) ---------
+
+    def _global_params(self) -> Dict[str, torch.Tensor]:
+        """Each parameter's global array, by parameter name (collective on a
+        mesh: every rank calls it and gets them all)."""
+        if self.mesh is None:
+            return {n: p.detach() for n, p in self.model.named_parameters()}
+        return {n: partition.gather_block(p, self.mesh, self.specs[n]) for n, p in self.model.named_parameters()}
 
     def export(self, version_dir: str, extra: Optional[Dict[str, Any]] = None) -> Dict[str, np.ndarray]:
         """Write flat-dict params (+ host-side artifacts like calibration
@@ -323,28 +497,18 @@ class Trainer:
 
         ≡ twml's export_model/SavedModel hand-off (trainer.py:660) — the
         artifact ``serving.model_registry.ModelRegistry`` hot-swaps in. The
-        names are the JAX package's: a model with a ``flax_params()`` method
-        (MaskNet) exports that tree, any other its ``state_dict``; nested
-        names join with "/", as JAX's tree paths do.
+        names and layouts are the JAX package's
+        (``core/partition.flax_layout``), the arrays the global ones. On a
+        mesh every rank calls it and gets the dict; the first rank writes.
         """
         from the_algorithm_tpu_torch.serving import model_registry
 
-        tree = self.model.flax_params() if hasattr(self.model, "flax_params") else self.model.state_dict()
-        flat: Dict[str, np.ndarray] = {}
-
-        def add(prefix: str, node) -> None:
-            if isinstance(node, dict):
-                for k, v in node.items():
-                    add(f"{prefix}/{k}" if prefix else str(k), v)
-            elif isinstance(node, torch.Tensor):
-                flat[prefix] = node.detach().cpu().numpy()
-            else:
-                flat[prefix] = np.asarray(node)
-
-        add("", dict(tree))
+        flat = partition.flax_flat(self.model, self._global_params())
         for k, v in (extra or {}).items():
             flat[k] = np.asarray(v)
-        model_registry.save_params_npz(version_dir, flat)
+        if self.mesh is None or self.mesh.position(JOINT_AXES) == 0:
+            model_registry.save_params_npz(version_dir, flat)
+        self._barrier()
         return flat
 
 
