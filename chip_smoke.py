@@ -101,7 +101,33 @@ Phases, each printing its result on its own line:
     shapes. Steps 9-11 run last: on the card, the profiler sessions that
     follow their thousands of launches and copies miss many of the copy
     events a short session makes;
-12. tweet_mixer, in a child process after the main process's last profiler
+12. home_pipeline, after the main process's last profiler session of steps
+    1-11 (its candidate pipelines launch kernels from the engine's pool
+    threads, and the tweet-mixer phase's threaded launches left later
+    sessions short), over step 5's world, sources and MaskNets: the
+    per-request For You product. Run A: ``build_for_you_pipeline`` with the
+    host columnar catalog (``build_wide_hydrators``: 34 hydrators, all 6,823
+    columns) and the f32 MaskNet, the four batch sources each asked per
+    request, 8 users with creation times below 1,000 s and a few seen ids,
+    held to the f32 batched engine on the same queries (the JAX test's
+    bounds) and each request's matrix to
+    ``DeviceHydrationScorer.assemble_features`` family by family. Run B:
+    the bf16 MaskNet, Phoenix at ``PhoenixConfig()``'s full width (bf16) with
+    each user's 400-event history and its loop (store, rescoring hydrator,
+    reranker, side effect), inside ``build_for_you_mixer`` with a
+    who-to-follow stand-in and two ads, registered beside the Following
+    product, each timeline marshalled to URT, the users served twice: no
+    failure at any level, every served tweet with MaskNet's heads and
+    Phoenix's features, a who-to-follow module and ads in each timeline.
+    Launches a request held exactly in both runs (1 run_collapse + 4 and
+    + 5 row_gather); bf16 against f32 on the card on the requests' own model
+    inputs; the f32 product on the card against the port on the CPU (2
+    users, both passes: ids but near-ties, every URT entry, scores rtol
+    1e-5); the host-clock split a request (sources, hydration, MaskNet,
+    Phoenix, the rest); the device's busy share; the new row_gather
+    launches (the three keyed groups, Phoenix's ``author_emb``) against
+    ``index_select``;
+13. tweet_mixer, in a child process after the main process's last profiler
     session (``chip_smoke.py --tweet-mixer`` runs it alone): tweet-mixer's
     Home product (20 pipelines) at bench.py's sizes
     (``data/tweet_mixer_world.py``) over the step-3 SANN world and the
@@ -119,9 +145,9 @@ Phases, each printing its result on its own line:
     single 512-byte TwHIN rows; the UTEG family's seed rows and dedup at
     R=1, one per seed count; UTG's two hops and dedup at B=1), with no
     copy_ yardstick;
-13. embedding_training, in a child process after the others
+14. embedding_training, in a child process after the others
     (``chip_smoke.py --embedding-training`` runs it alone): the copy_
-    yardstick at step 12's collapse shapes; small-width f32 two-tower and
+    yardstick at step 13's collapse shapes; small-width f32 two-tower and
     TwHIN models through the ``Trainer`` on the card against the CPU (first
     gradients, params after 3 steps); both models at tweet-mixer's widths
     (16,384 users x 2,000,000 items x 128 f32 tables) trained on
@@ -136,9 +162,9 @@ Phases, each printing its result on its own line:
     ``index_put_(accumulate=True)``), with times; RealGraph's edge model
     (fit, ``top_edges``) and a WALS fit (``consumer_embedding``,
     ``similar_items``), each card against CPU; then the trained tables
-    served through the Home dense engines of a world built as step 12's,
+    served through the Home dense engines of a world built as step 13's,
     the planted items in a served user's dense top-200s;
-14. collapse_rows, in a child process after that one (``chip_smoke.py
+15. collapse_rows, in a child process after that one (``chip_smoke.py
     --collapse-rows`` runs it alone): ``run_collapse_rows``' run-length
     sweep at D=128 (4,096 slots into 6, 64, 4,096, 16,384, 65,536, 262,144
     and 2,000,000 rows; 100,000 into one row and into 1,000), each shape held
@@ -148,7 +174,7 @@ Phases, each printing its result on its own line:
     then, at the item- and user-table shapes, the kernel launched while
     another stream of the process keeps the card busy (its cooperative
     launch: the call finishes with a quiet run's bits);
-15. mesh, in a child process after that one (``chip_smoke.py --mesh`` runs
+16. mesh, in a child process after that one (``chip_smoke.py --mesh`` runs
     it alone, building the SANN world itself): one NCCL rank and a 1x1
     (data, model) mesh (``core/mesh.py``); bench.py's lookup
     (bench.py:331-393: a 16,000,000 x 128 f32 table, 16 iterations of
@@ -166,7 +192,7 @@ Phases, each printing its result on its own line:
     (``--mesh-rank``, each its own process): the hybrid form on a 2x2 mesh
     and the index-sharded form on a 1x4 mesh against the world-1 lists, a
     4-way multiget of 65,536 ids bit-equal to ``index_select``;
-16. mesh_training, in a child process after that one (``chip_smoke.py
+17. mesh_training, in a child process after that one (``chip_smoke.py
     --mesh-training`` runs it alone): one NCCL rank and a 1x1 mesh; two-tower
     and TwHIN with ``explicit_lookup`` at tweet-mixer's widths (16,384 x
     2,000,000 x 128, B=4,096, adam 1e-2) through the sharded ``Trainer``
@@ -186,7 +212,8 @@ Phases, each printing its result on its own line:
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
-updates, embedding training, the mesh layer's serving and training halves),
+updates, the per-request For You product, embedding training, the mesh
+layer's serving and training halves),
 error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
@@ -218,7 +245,13 @@ from the_algorithm_tpu_torch.core.config import Params, param_scope
 from the_algorithm_tpu_torch.core.decider import Decider
 from the_algorithm_tpu_torch.data import foryou_world, sann_world, tweet_mixer_world
 from the_algorithm_tpu_torch.graph import graphjet, uteg
+from the_algorithm_tpu_torch.core.metrics import StatsReceiver
 from the_algorithm_tpu_torch.mixers import batched_foryou as bf
+from the_algorithm_tpu_torch.mixers import feature_hydrators as fh
+from the_algorithm_tpu_torch.mixers import home_mixer as hm
+from the_algorithm_tpu_torch.mixers import home_products as hp
+from the_algorithm_tpu_torch.mixers import phoenix_loop as pl
+from the_algorithm_tpu_torch.mixers import phoenix_scorer as ps
 from the_algorithm_tpu_torch.mixers import candidate_pipeline_catalog as cat
 from the_algorithm_tpu_torch.mixers import device_hydration as dh
 from the_algorithm_tpu_torch.mixers import feature_schema as fs
@@ -229,10 +262,14 @@ from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
 from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
 from the_algorithm_tpu_torch.mixers.home_products import EXACT_RETRIEVAL_TIER
 from the_algorithm_tpu_torch.graph import realgraph
-from the_algorithm_tpu_torch.models import masknet, twhin, two_tower, wals
+from the_algorithm_tpu_torch.models import masknet, phoenix, twhin, two_tower, wals
 from the_algorithm_tpu_torch.ops import gather, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
+from the_algorithm_tpu_torch.pipeline import urt
+from the_algorithm_tpu_torch.pipeline.component import (Candidate, CandidatePipeline, CandidateSource,
+                                                        QueryFeatureHydrator, Selector)
+from the_algorithm_tpu_torch.pipeline.mixer import EntryKind
 from the_algorithm_tpu_torch.search import earlybird
 from the_algorithm_tpu_torch.serving.batcher import BatcherConfig, RequestBatcher
 from the_algorithm_tpu_torch.serving.model_registry import ModelRegistry, save_params_npz
@@ -732,8 +769,8 @@ def phase_retrieval(shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, i
     gather.row_gather.launches = 0
     out_ids, out_scores = ann.get_tweet_candidates_batch(index, sources, cfg)
     torch.cuda.synchronize()
-    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches,
-                "row_gather": gather.row_gather.launches}
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather)}
     require(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
     require(out_ids.shape == (shape.Q, shape.X) and out_scores.shape == (shape.Q, shape.X),
             f"result shape {tuple(out_ids.shape)}")
@@ -910,8 +947,8 @@ def phase_candidates(dev):
         gather.row_gather.launches = 0
         outs[name] = fn()
         torch.cuda.synchronize()
-        launches[name] = {"run_collapse": seg_scan.run_collapse_sorted.launches,
-                          "row_gather": gather.row_gather.launches}
+        launches[name] = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                          "row_gather": _build.launches(gather.row_gather)}
     print(f"candidates: launches per batch {launches}")
     require(launches["uteg"] == {"run_collapse": 1, "row_gather": 1}, f"UTEG launches {launches['uteg']}")
     require(launches["utg"] == {"run_collapse": 1, "row_gather": 2}, f"UTG launches {launches['utg']}")
@@ -1190,7 +1227,8 @@ def phase_foryou(dev, sann, cand):
     gather.row_gather.launches = 0
     out = served.serve_batch(batch)
     torch.cuda.synchronize()
-    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather)}
     print(f"foryou: launches per R={FY_R} serve batch {launches} (hydration multiget and UTEG)")
     require(launches == FY_LAUNCHES, f"For You launches {launches}, want {FY_LAUNCHES}")
     require(len(out) == FY_R and all(0 < len(o) <= FY_TOP_K for o in out), "a list empty or too long")
@@ -1375,7 +1413,584 @@ def phase_foryou(dev, sann, cand):
     torch.cuda.empty_cache()
     # the live phase's freshness probe: the serving engine with small creation times
     probe = engine(served.scorer, lift=spread_lift(lift), max_age_s=10 ** 9)
-    return launches, dict(served=served, sources=sources, lift=lift, queries=queries, probe=probe)
+    return launches, dict(served=served, sources=sources, lift=lift, queries=queries, probe=probe, world=world,
+                          spread=spread, ref=ref, m16=m16, follows=follows, index=index)
+
+
+# the per-request For You product (home_pipeline): the JAX package's product
+# surface, home_mixer.build_for_you_pipeline → home_products.build_for_you_mixer
+# → urt.marshal_timeline, over the For You phase's world, sources and models
+HP_USERS = 8  # users served; run B serves them twice (the second pass reads the Phoenix loop's store)
+HP_BASE = 600  # their ids
+HP_SEEN = 3  # seen ids a query carries: its user's first SANN ids (the seen filter has work)
+HP_CPU = 2  # users whose f32 product (both passes) is held against the port on the CPU
+HP_EVENTS = 400  # raw Phoenix action events a user: after aggregation the history fills all 256 slots
+HP_SEED = 13
+# kernel launches of one request, from the code: UTEG's seed fetch and dedup
+# (1 row_gather + 1 run_collapse; earlybird and the SANN rows launch none);
+# the hydrator catalog's keyed tables, one multiget a key group (viewer,
+# author, tweet: three 16-byte-row tables each, one launch each); run B adds
+# Phoenix's author_emb read (history and candidates in one launch)
+HP_LAUNCHES_A = {"run_collapse": 1, "row_gather": 4}
+HP_LAUNCHES_B = {"run_collapse": 1, "row_gather": 5}
+# run A against the batched engine: the JAX test's bounds
+# (tests/test_batched_foryou.py:147-157): each shared id's score within 1e-5,
+# ranks apart only among scores within 2e-6
+HP_PAIR_TOL, HP_TIE_TOL = 1e-5, 2e-6
+# the host catalog's matrix against the device assembly, family by family:
+# the JAX test's bound (tests/test_device_hydration.py:93-103)
+HP_ASSEMBLE_TOL = 2e-3
+# bf16 against f32 on the card, on the inputs the served requests gave the
+# models: MaskNet's head probabilities move by at most a quarter of its
+# logits' LOGIT_ATOL (a sigmoid's slope is at most 1/4); Phoenix's by 3e-2:
+# its logits ride a bf16 residual stream through 4 blocks and the
+# cross-attention (about 20 roundings of 2^-8 relative on values of a few
+# units: up to ~0.1 on a logit), times the same 1/4
+HP_HEAD_ATOL = LOGIT_ATOL / 4
+HP_PHOENIX_ATOL = 3e-2
+HP_ADS = ((7_000_001, 55), (7_000_002, 56))  # (ad id, advertiser)
+
+
+class StepClock:
+    """Per-request host-clock split of the product, in ms: each wrapped
+    component adds its time to its step; the caller opens and closes a
+    request."""
+
+    STEPS = ("sources", "hydration", "MaskNet", "Phoenix")
+
+    def __init__(self):
+        self.rows, self.cur, self.mark = [], None, 0.0
+
+    def begin(self):
+        self.cur, self.t0 = dict.fromkeys(self.STEPS, 0.0), time.perf_counter()
+
+    def end(self):
+        self.cur["total"] = 1e3 * (time.perf_counter() - self.t0)
+        self.rows.append(self.cur)
+        self.cur = None
+
+    def add(self, step, t0):
+        if self.cur is not None:  # a request outside begin/end is not timed
+            self.cur[step] += 1e3 * (time.perf_counter() - t0)
+
+    def summary(self, rest: str) -> str:
+        def pct(xs, q):
+            xs = np.sort(xs)
+            return xs[min(len(xs) - 1, int(np.ceil(q * (len(xs) - 1))))]
+
+        cols = {s: [r[s] for r in self.rows] for s in self.STEPS}
+        cols[rest] = [r["total"] - sum(r[s] for s in self.STEPS) for r in self.rows]
+        cols["total"] = [r["total"] for r in self.rows]
+        return ", ".join(f"{s} p50 {pct(v, 0.5):.1f} / p99 {pct(v, 0.99):.1f} ms" for s, v in cols.items())
+
+
+class Timed:
+    """A hydrator, query hydrator or scorer whose calls add to a step of a
+    :class:`StepClock` (the engine only calls ``name`` and the method)."""
+
+    def __init__(self, inner, clock, step):
+        self.inner, self.clock, self.step = inner, clock, step
+
+    @property
+    def name(self):
+        return self.inner.name
+
+    def hydrate(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return self.inner.hydrate(*args)
+        finally:
+            self.clock.add(self.step, t0)
+
+    def score(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return self.inner.score(*args)
+        finally:
+            self.clock.add(self.step, t0)
+
+
+class SourcesStart(QueryFeatureHydrator):
+    """The last query hydrator: marks where the candidate pipelines start."""
+
+    def __init__(self, clock):
+        self.clock = clock
+
+    def hydrate(self, query, params):
+        self.clock.mark = time.perf_counter()
+        return {}
+
+
+class SourcesDone(Selector):
+    """The first post-candidate selector: the candidate pipelines' wall time."""
+
+    def __init__(self, clock):
+        self.clock = clock
+
+    def select(self, query, candidates, params):
+        self.clock.add("sources", self.clock.mark)
+        return candidates
+
+
+class PerRequestSource(CandidateSource):
+    """A batch source asked for one query, as the JAX package's test wraps
+    one (tests/test_batched_foryou.py:89-106): ``get_batch([query])[0]``,
+    lifted, as Candidates; with the in-network flag the engine sets at
+    retrieval (batched_foryou.py:194-195), which that wrapper leaves out.
+    ``record`` keeps each answer for :class:`ReplaySource`."""
+
+    def __init__(self, batch_source, lift, record=None):
+        self.bs, self.lift, self.record = batch_source, lift, record
+
+    @property
+    def name(self):
+        return self.bs.name
+
+    def get(self, query, params):
+        cc = self.bs.get_batch([query], params)[0]
+        if self.bs.name in ("EarlybirdInNetwork", "FollowingEarlybird"):
+            cc.cols["is_in_network"] = np.ones(len(cc), np.float32)
+        cc = self.lift(cc)
+        cols = {n: np.asarray(v).tolist() for n, v in cc.cols.items()}
+        out = [Candidate(id=int(t), source=self.bs.name, features={n: v[i] for n, v in cols.items()})
+               for i, t in enumerate(cc.ids.tolist())]
+        if self.record is not None:
+            self.record[(self.bs.name, int(query.user_id))] = [(c.id, dict(c.features)) for c in out]
+        return out
+
+
+class ReplaySource(CandidateSource):
+    """What a :class:`PerRequestSource` answered for a user, as new Candidates."""
+
+    def __init__(self, name, record):
+        self._name, self.record = name, record
+
+    @property
+    def name(self):
+        return self._name
+
+    def get(self, query, params):
+        return [Candidate(id=i, source=self._name, features=dict(f))
+                for i, f in self.record[(self._name, int(query.user_id))]]
+
+
+class CheckedPipeline:
+    """The scored pipeline behind the mixer, its results kept:
+    ``ScoredTweetsSource`` passes on only the candidates, and a failure the
+    pipeline fails open on (a hydrator, a scorer) would not show."""
+
+    def __init__(self, pipe):
+        self.pipe, self.results = pipe, []
+
+    def run(self, query, params=None):
+        result = self.pipe.run(query, params if params is not None else Params())
+        self.results.append(result)
+        return result
+
+
+class PhoenixScored(ps.PhoenixScorer):
+    """The Phoenix scorer, keeping each request's scored ids (the first
+    ``MAX_CANDIDATES`` of a request with a history)."""
+
+    def __init__(self, predict_fn):
+        super().__init__(predict_fn)
+        self.scored = []
+
+    def score(self, query, candidates, params):
+        self.scored.append(frozenset(c.id for c in candidates[:ps.MAX_CANDIDATES]) if self.only_if(query)
+                           else frozenset())
+        super().score(query, candidates, params)
+
+
+class WhoToFollowStandIn:
+    """The who-to-follow flow: any object with ``.run(request)``
+    (``mixers/follow_recommendations.RecommendationFlow`` is ported later;
+    examples/full_stack_demo.py:222-231 builds such a flow)."""
+
+    def run(self, request):
+        u = int(request.user_id)
+        return [Candidate(id=(u * 7 + i) % FY_WORLD["num_users"], score=1.0 - 0.1 * i,
+                          features={"author_follows_viewer": 1}) for i in range(4)]
+
+
+def recording(fn, sink, limit):
+    """``fn``, keeping its first ``limit`` calls' arguments in ``sink``."""
+    def call(*args):
+        if len(sink) < limit:
+            sink.append(args)
+        return fn(*args)
+    return call
+
+
+def hp_events(user_id):
+    """A user's raw Phoenix action events, (ts_ms, action id, author hash):
+    HP_EVENTS over the last 7 days, the 22 actions after PAD, the world's
+    authors, drawn with numpy from (HP_SEED, user)."""
+    rng = np.random.default_rng([HP_SEED, int(user_id)])
+    ts = foryou_world.NOW * 1000 - rng.integers(0, 7 * 86400 * 1000, HP_EVENTS)
+    return list(zip(ts.tolist(), rng.integers(1, phoenix.NUM_ACTIONS, HP_EVENTS).tolist(),
+                    rng.integers(0, FY_WORLD["num_authors"], HP_EVENTS).tolist()))
+
+
+def to_cpu(x):
+    """The world on the CPU: tensors copied, named tuples, tuples and dicts
+    mapped; a closure's results copied as it returns them."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_cpu(v) for v in x))
+    if isinstance(x, tuple):
+        return tuple(to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if callable(x) and not isinstance(x, type):
+        return lambda *a, _f=x: to_cpu(_f(*a))
+    return x
+
+
+def home_queries(fy):
+    """HP_USERS For You queries, each with HP_SEEN of its SANN ids as seen."""
+    sann = fy["sources"][0]
+    out = []
+    for u in range(HP_BASE, HP_BASE + HP_USERS):
+        q = ForYouQuery(user_id=u, followed_authors=fy["follows"][u % len(fy["follows"])], max_results=FY_TOP_K,
+                        now=foryou_world.NOW)
+        q.seen_tweet_ids = frozenset(sann.get_batch([q], None)[0].ids[:HP_SEEN].tolist())
+        out.append(q)
+    return out
+
+
+def fresh(q):
+    """A copy of query ``q`` with empty features (a request's own store)."""
+    return dataclasses.replace(q, features={})
+
+
+def home_pipeline(world, sources, predict, clock, phoenix_predict=None, store=None, device=None):
+    """``build_for_you_pipeline`` over the wide catalog of ``world``
+    (WIDE_SCHEMA), MaskNet's ``predict``, ``sources`` (candidate sources),
+    with Phoenix and its loop when given ``phoenix_predict`` and ``store``;
+    the age filter opened for creation times below SPREAD_TS. Returns the
+    pipeline and its Phoenix scorer (None without)."""
+    phx = None
+    kw = {}
+    if phoenix_predict is not None:
+        phx = PhoenixScored(phoenix_predict)
+        actions = fh.UserActionsQueryHydrator(hp_events, max_length=phoenix.PhoenixConfig().max_history,
+                                              device=device)
+        kw = dict(query_hydrators=[Timed(actions, clock, "Phoenix")], phoenix_scorer=phx,
+                  phoenix_rescoring_store=store)
+    pipe = hm.build_for_you_pipeline(
+        candidate_pipelines=[CandidatePipeline(s) for s in sources],
+        hydrators=[Timed(h, clock, "hydration") for h in wh.build_wide_hydrators(**world)],
+        predict_fn=predict, feature_schema=fs.WIDE_SCHEMA, max_tweet_age_s=10 ** 9, **kw)
+    pipe.query_hydrators_phase2.append(SourcesStart(clock))
+    pipe.post_candidate_selectors.insert(0, SourcesDone(clock))
+    pipe.scorers = [Timed(s, clock, "MaskNet" if i == 0 else "Phoenix") for i, s in enumerate(pipe.scorers)]
+    return pipe, phx
+
+
+def for_you_product(pipe, stats):
+    """The For You mixer over ``pipe`` (kept as a :class:`CheckedPipeline`)
+    with the who-to-follow stand-in and two ads."""
+    checked = CheckedPipeline(pipe)
+    ads = [Candidate(id=i, features={"advertiser_id": a}) for i, a in HP_ADS]
+    return hp.build_for_you_mixer(scored_tweets_pipeline=checked, wtf_flow=WhoToFollowStandIn(), ads=ads,
+                                  stats=stats), checked
+
+
+def serve_product(mixer, clock, queries, passes):
+    """Each query through the mixer and URT, ``passes`` times: [(served
+    candidates, timeline, URT JSON)]."""
+    out = []
+    for _ in range(passes):
+        for q in queries:
+            q = fresh(q)
+            clock.begin()
+            tl = mixer.run(q)
+            doc = urt.marshal_timeline(tl).to_json()
+            clock.end()
+            out.append((tl, doc))
+    return out
+
+
+def product_checks(served, checked, stats, phx, what):
+    """Run B's checks on each served request: no failure at any level, every
+    served tweet with MaskNet's 15 heads and (where Phoenix scored it) its
+    head features, a who-to-follow module and ads in the timeline."""
+    failed = {k: v for k, v in stats.counters().items() if "failed" in k}
+    require(not failed, f"{what}: the mixer failed open: {failed}")
+    for r in checked.results:
+        require(not r.failures, f"{what}: the scored pipeline failed open: {r.failures}")
+    heads = [f"predicted_{h}" for h in masknet.DEFAULT_HEAD_NAMES]
+    require(len(phx.scored) == len(served), f"{what}: Phoenix scored {len(phx.scored)} of {len(served)} requests")
+    for (tl, doc), scored in zip(served, phx.scored):
+        tweets = [e.candidate for e in tl.entries if e.kind == EntryKind.TWEET]
+        require(0 < len(tweets) <= FY_TOP_K, f"{what}: {len(tweets)} tweets served")
+        for c in tweets:
+            require(all(h in c.features for h in heads), f"{what}: tweet {c.id} lacks MaskNet's heads")
+            if c.id in scored:
+                want = {f"phoenix_{h.name}" for h in ps.PHOENIX_HEADS if h.eligible(c)}
+                require(want <= set(c.features), f"{what}: tweet {c.id} lacks Phoenix's {want - set(c.features)}")
+        entries = json.loads(doc)["timeline"]["instructions"][0]["addEntries"]["entries"]
+        require(any(e["entryId"].startswith("module-who_to_follow-") for e in entries),
+                f"{what}: no who-to-follow module")
+        require(sum(e["entryId"].startswith("promoted-tweet-") for e in entries) >= 1, f"{what}: no ad")
+
+
+def scoreless(doc):
+    """A URT JSON document: (each entry by id with its item scores taken
+    out, the entry ids in order, {tweet id: score})."""
+    entries = json.loads(doc)["timeline"]["instructions"][0]["addEntries"]["entries"]
+    scores = {}
+    for e in entries:
+        content = e["content"]
+        items = ([content["item"]] if content["kind"] == "item"
+                 else content["module"]["items"] if content["kind"] == "module" else [])
+        for it in items:
+            if "score" in it.get("metadata", {}):
+                scores[it["id"]] = it["metadata"].pop("score")
+    return {e["entryId"]: e for e in entries}, [e["entryId"] for e in entries], scores
+
+
+def same_timelines(got, want, what):
+    """Two products' answers to the same requests: the tweets ranked alike
+    (:func:`check_same_ranking` at FY_RTOL/FY_ATOL), every other entry in
+    the same place, entries in both equal but for their scores. Returns the
+    ranks holding another id."""
+    moved = 0
+    for (gtl, gdoc), (wtl, wdoc) in zip(got, want):
+        g_ids = np.asarray([e.candidate.id for e in gtl.entries if e.kind == EntryKind.TWEET])
+        w_ids = np.asarray([e.candidate.id for e in wtl.entries if e.kind == EntryKind.TWEET])
+        g_sc = np.asarray([e.candidate.score for e in gtl.entries if e.kind == EntryKind.TWEET])
+        w_sc = np.asarray([e.candidate.score for e in wtl.entries if e.kind == EntryKind.TWEET])
+        k = max(len(g_ids), len(w_ids))
+        pad = lambda a, v: np.concatenate([a, np.full(k - len(a), v)])  # noqa: E731
+        moved += check_same_ranking(pad(g_ids, PAD_ID)[None], pad(g_sc, 0.0)[None], pad(w_ids, PAD_ID)[None],
+                                    pad(w_sc, 0.0)[None], FY_RTOL, FY_ATOL, what)
+        (g, g_order, g_s), (w, w_order, w_s) = scoreless(gdoc), scoreless(wdoc)
+        for i, (a, b) in enumerate(zip(g_order, w_order)):
+            require(a == b or (a.startswith("tweet-") and b.startswith("tweet-")),
+                    f"{what}: entry {i} is {a} here and {b} there")
+        for eid in g.keys() & w.keys():
+            if not eid.startswith("cursor-"):  # a cursor is the top or last tweet id, which near-ties may move
+                require(g[eid] == w[eid], f"{what}: entry {eid} differs")
+        for t in g_s.keys() & w_s.keys():
+            require(abs(g_s[t] - w_s[t]) <= FY_ATOL + FY_RTOL * abs(w_s[t]), f"{what}: tweet {t} scored apart")
+    return moved
+
+
+def phase_home_pipeline(dev, fy):
+    """The per-request For You product on the card, over what the foryou
+    phase built (its world, sources, MaskNets and spread-lift engine).
+
+    Run A: ``build_for_you_pipeline`` with the wide catalog and the f32
+    MaskNet, the four batch sources each asked per request, HP_USERS users
+    with creation times below SPREAD_TS, held against the f32 batched engine
+    on the same queries (the JAX test's bounds) and each request's matrix
+    against ``DeviceHydrationScorer.assemble_features``. Run B: the product,
+    with the bf16 MaskNet, Phoenix at ``PhoenixConfig()``'s full width in
+    bf16 and its loop, inside ``build_for_you_mixer`` with a who-to-follow
+    stand-in and two ads, registered beside the Following product, every
+    timeline marshalled to URT; the users served twice. Launches counted and
+    held exactly; the f32 product on the card against the port on the CPU;
+    bf16 against f32; host-clock splits; the device's busy share; the new
+    row_gather launches against index_select. Returns one request's
+    launches."""
+    t_phase = time.perf_counter()
+    world, sources, lift = fy["world"], fy["sources"], spread_lift(fy["lift"])
+    queries = home_queries(fy)
+    pcfg = phoenix.PhoenixConfig()  # d_model 256, 4 layers, 8 heads, 256 history, 65,536 author buckets, bf16
+    px16 = phoenix.PhoenixModel(pcfg, device=dev, generator=torch.Generator(device=dev).manual_seed(HP_SEED))
+    px32 = phoenix.PhoenixModel(dataclasses.replace(pcfg, dtype="float32"), device=dev)
+    px32.load_state_dict(px16.state_dict())
+    print(f"home_pipeline: {card_line()}; Phoenix at full width (d_model {pcfg.d_model}, {pcfg.n_layers} layers, "
+          f"{pcfg.n_heads} heads, history {pcfg.max_history}, {pcfg.author_buckets} author buckets, {pcfg.dtype}); "
+          f"{HP_USERS} users, {HP_EVENTS} raw action events each")
+
+    # run A: the per-request pipeline against the batched engine, f32
+    clock_a = StepClock()
+    matrices = []
+    pipe_a, _ = home_pipeline(world, [PerRequestSource(s, lift) for s in sources], masknet.predict_fn(fy["ref"]),
+                              clock_a)
+    assembler = pipe_a.scorers[0].inner.assembler
+    pipe_a.scorers[0].inner.assembler = lambda q, c: matrices.append((q, list(c), assembler(q, c))) or matrices[-1][2]
+    warm = pipe_a.run(fresh(queries[0]))  # builds lazy state (host mirrors are made at build time; the pool starts)
+    require(not warm.failures, f"run A failed open: {warm.failures}")
+    matrices.clear()
+    torch.cuda.synchronize()
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    results_a = []
+    for q in queries:
+        clock_a.begin()
+        results_a.append(pipe_a.run(fresh(q)))
+        clock_a.end()
+    torch.cuda.synchronize()
+    launches_a = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                  "row_gather": _build.launches(gather.row_gather)}
+    want_a = {k: HP_USERS * v for k, v in HP_LAUNCHES_A.items()}
+    require(launches_a == want_a, f"run A launches {launches_a}, want {want_a} ({HP_LAUNCHES_A} a request)")
+    engine_out = fy["spread"].serve_batch(queries)
+    worst_pair, moved, n_served = 0.0, 0, 0
+    for q, got, res in zip(queries, engine_out, results_a):
+        require(not res.failures, f"run A failed open: {res.failures}")
+        want = res.candidates
+        require(0 < len(want) <= FY_TOP_K and len(got) == len(want), "run A: not the engine's number of results")
+        require(not {c.id for c in want} & set(q.seen_tweet_ids), "run A served a seen id")
+        require(all(q.now - c.features["created_ts"] <= 10 ** 9 for c in want), "run A served past the max age")
+        got_s, want_s = {c.id: c.score for c in got}, {c.id: c.score for c in want}
+        for i in got_s.keys() & want_s.keys():
+            worst_pair = max(worst_pair, abs(got_s[i] - want_s[i]))
+        require(worst_pair < HP_PAIR_TOL, f"run A: a shared id's score {worst_pair:.3g} from the engine's")
+        for r, (g, w) in enumerate(zip([c.id for c in got], [c.id for c in want])):
+            if g != w:
+                moved += 1
+                require(abs(want_s[w] - want_s.get(g, got_s[g])) < HP_TIE_TOL,
+                        f"run A rank {r}: {g} against the engine's {w}, not a near-tie")
+        n_served += len(want)
+    worst = {}
+    for q, cands, x in matrices:
+        d = fy["spread"].scorer.assemble_features(q, cands)
+        require(d.shape == x.shape == (len(cands), fs.total_width(fs.WIDE_SCHEMA)), f"matrices of {x.shape}, {d.shape}")
+        col = 0
+        for spec in fs.WIDE_SCHEMA:
+            a, b = x[:, col:col + spec.width], d[:, col:col + spec.width]
+            fam = spec.name.split("_")[0]
+            err = float(np.abs(a - b).max()) if len(cands) else 0.0
+            require(np.allclose(b, a, atol=HP_ASSEMBLE_TOL, rtol=HP_ASSEMBLE_TOL),
+                    f"{spec.name}: host catalog and device assembly {err:.3g} apart")
+            if err >= worst.get(fam, (0.0, ""))[0]:
+                worst[fam] = (err, spec.name)
+            col += spec.width
+    n_cands = [len(c) for _, c, _ in matrices]
+    print(f"home_pipeline: run A, {HP_USERS} requests ({min(n_cands)}-{max(n_cands)} candidates each, creation times "
+          f"below {SPREAD_TS} s): launches {launches_a} ({HP_LAUNCHES_A} a request, as derived); the batched f32 engine's "
+          f"{n_served} served ids, {moved} ranks apart among near-ties (within {HP_TIE_TOL}); shared ids' scores within "
+          f"{worst_pair:.3g} (bound {HP_PAIR_TOL}); no seen id, none past the max age; each request's "
+          f"{fs.total_width(fs.WIDE_SCHEMA)}-column matrix against the device assembly within {HP_ASSEMBLE_TOL}, worst "
+          f"|diff| by family: " + ", ".join(f"{f} {e:.3g}" for f, (e, n) in worst.items() if e > 0))
+    del matrices
+
+    # run B: the product, bf16, Phoenix and its loop, twice
+    clock_b, stats_b = StepClock(), StatsReceiver()
+    phx_inputs, head_inputs, record = [], [], {}
+    pipe_b, phx_b = home_pipeline(world, [PerRequestSource(s, lift, record) for s in sources],
+                                  recording(masknet.predict_fn(fy["m16"]), head_inputs, 2), clock_b,
+                                  recording(phoenix.scorer_predict_fn(px16), phx_inputs, 2), pl.PhoenixScoreStore(),
+                                  device=dev)
+    mixer, checked = for_you_product(pipe_b, stats_b)
+    registry = hp.HomeProductPipelineRegistry()
+    registry.register("for_you", mixer)
+    registry.register("following", hp.build_following_pipeline(index=fy["index"], stats=stats_b))
+    require(registry.products() == ["following", "for_you"], f"products {registry.products()}")
+    torch.cuda.synchronize()
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    served_b = serve_product(registry.get("for_you"), clock_b, queries, 2)
+    torch.cuda.synchronize()
+    launches_b = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                  "row_gather": _build.launches(gather.row_gather)}
+    want_b = {k: 2 * HP_USERS * v for k, v in HP_LAUNCHES_B.items()}
+    require(launches_b == want_b, f"run B launches {launches_b}, want {want_b} ({HP_LAUNCHES_B} a request)")
+    product_checks(served_b, checked, stats_b, phx_b, "run B")
+    reranked = sum(bool(e.candidate.features.get("phoenix_reranked")) for tl, _ in served_b[HP_USERS:]
+                   for e in tl.entries if e.kind == EntryKind.TWEET)
+    require(reranked > 0, "run B's second pass reranked nothing from the Phoenix store")
+    following = urt.marshal_timeline(registry.get("following").run(hp.TimelineQuery(
+        user_id=queries[0].user_id, followed_authors=queries[0].followed_authors, now=foryou_world.NOW)))
+    require(len(following.entries()) > 0, "the Following product served nothing")
+    print(f"home_pipeline: run B, {2 * HP_USERS} requests through build_for_you_mixer and URT: launches {launches_b} "
+          f"({HP_LAUNCHES_B} a request, as derived); no failure in the scored pipeline or the mixer; every served "
+          f"tweet with MaskNet's 15 heads and Phoenix's features; each timeline a who-to-follow module and ads; the "
+          f"second pass reranked {reranked} served tweets from the loop's store; Following served "
+          f"{len(following.entries())} entries from the same registry")
+
+    # one counted request: the path's launches
+    torch.cuda.synchronize()
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    serve_product(mixer, StepClock(), queries[:1], 1)
+    torch.cuda.synchronize()
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather)}
+    require(launches == HP_LAUNCHES_B, f"one request's launches {launches}, want {HP_LAUNCHES_B}")
+
+    # bf16 against f32 on the card, on the inputs the served requests gave the models
+    head_err = max(float(np.abs(masknet.predict_fn(fy["m16"])(x) - masknet.predict_fn(fy["ref"])(x)).max())
+                   for (x,) in head_inputs)
+    px_err = max(float(np.abs(phoenix.scorer_predict_fn(px16)(*a) - phoenix.scorer_predict_fn(px32)(*a)).max())
+                 for a in phx_inputs)
+    require(head_err <= HP_HEAD_ATOL, f"bf16 MaskNet heads {head_err:.3g} from f32 (bound {HP_HEAD_ATOL})")
+    require(px_err <= HP_PHOENIX_ATOL, f"bf16 Phoenix probabilities {px_err:.3g} from f32 (bound {HP_PHOENIX_ATOL})")
+    hist = phx_inputs[0][3]
+    print(f"home_pipeline: bf16 against f32 on the card over {len(head_inputs)} requests' inputs: MaskNet heads within "
+          f"{head_err:.3g} (bound {HP_HEAD_ATOL:.3g}), Phoenix probabilities of {len(phx_inputs[0][0])} candidates "
+          f"within {px_err:.3g} (bound {HP_PHOENIX_ATOL}); a history holds {int(hist.valid.sum())} of "
+          f"{pcfg.max_history} slots")
+
+    # the f32 product on the card against the port on the CPU, the same candidates
+    cpu_world = to_cpu(world)
+    ref_cpu = masknet.MaskNet(fy["ref"].config, device="cpu")
+    ref_cpu.load_state_dict(fy["ref"].state_dict())
+    px_cpu = phoenix.PhoenixModel(px32.config, device="cpu")
+    px_cpu.load_state_dict(px32.state_dict())
+    answers = {}
+    for where, w, mn, px, d in (("card", world, fy["ref"], px32, dev), ("cpu", cpu_world, ref_cpu, px_cpu, "cpu")):
+        replay = [ReplaySource(s.name, record) for s in sources]
+        pipe, phx = home_pipeline(w, replay, masknet.predict_fn(mn), StepClock(), phoenix.scorer_predict_fn(px),
+                                  pl.PhoenixScoreStore(), device=d)
+        stats = StatsReceiver()
+        mx, chk = for_you_product(pipe, stats)
+        answers[where] = serve_product(mx, StepClock(), queries[:HP_CPU], 2)
+        product_checks(answers[where], chk, stats, phx, f"the f32 product on the {where}")
+    moved = same_timelines(answers["card"], answers["cpu"], "the f32 product, card against CPU")
+    print(f"home_pipeline: the f32 product on the card against the port on the CPU, {HP_CPU} users x 2 passes: "
+          f"tweets ranked alike ({moved} ranks hold another id, within near-ties), scores within rtol {FY_RTOL} / atol "
+          f"{FY_ATOL}, every other URT entry equal")
+    del cpu_world, ref_cpu, px_cpu
+
+    # the host clock, the device's busy share, the new row_gather launches
+    print(f"home_pipeline: host clock (not a benchmark; {card_line()}; taken after the main process's profiler "
+          f"sessions), run A, {HP_USERS} requests: {clock_a.summary('filters and selection')}")
+    print(f"home_pipeline: host clock, run B, {2 * HP_USERS} requests: {clock_b.summary('mixer and URT')}")
+    busy_qs = queries[:2]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_product(mixer, StepClock(), busy_qs, 1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1000
+    print(f"home_pipeline: device busy {dev_ms:.2f} ms of {wall_ms:.1f} ms over {len(busy_qs)} run-B requests "
+          f"({100 * dev_ms / wall_ms:.1f}%; torch.profiler, CUDA activity only)")
+    calls = []
+    real = gather.row_gather
+
+    def keep(ids, *tables):
+        calls.append((ids.clone(), tuple(t.detach() for t in tables)))  # Phoenix's table is a parameter
+        return real(ids, *tables)
+
+    keep.launches = 0  # the counters name the wrapper they run in
+    gather.row_gather = keep
+    try:
+        serve_product(mixer, StepClock(), queries[1:2], 1)
+    finally:
+        gather.row_gather = real
+    torch.cuda.synchronize()
+    names = {world["twhin_user"].data_ptr(): "viewer group (twhin_user, twhin_user_negative, user_interests_emb)",
+             world["twhin_author"].data_ptr(): "author group (twhin_author, twhin_author_follow, author_agg_emb)",
+             world["twhin_tweet"].data_ptr(): "tweet group (twhin_tweet, media_clip_clusters, text_emb)",
+             px16.author_emb.embedding.data_ptr(): "Phoenix author_emb (history + candidates)"}
+    times = {}
+    for ids, tables in calls:
+        label = next((n for t in tables for p, n in names.items() if t.data_ptr() == p), None)
+        if label is not None:
+            times[label] = time_gather(ids.reshape(-1).contiguous(), tables,
+                                       f"home_pipeline {label}: {ids.numel()} rows x "
+                                       f"{'+'.join(str(t.shape[1] * t.element_size()) for t in tables)} B")
+    require(len(times) == 4, f"the new path's row_gather launches seen: {sorted(times)}")
+    print(f"home_pipeline: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # the exact retrieval tier as bench.py serves it (bench.py:616-694): the turbo
@@ -1512,7 +2127,8 @@ def phase_exact_tier(world, sann, sann_recall, fy):
     gather.row_gather.launches = 0
     out = engine.serve_batch(batch)
     torch.cuda.synchronize()
-    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather)}
     print(f"exact_tier: launches per R={TIER_R} serve batch {launches} (hydration multiget and UTEG; the scan's "
           "gather is index_select)")
     require(launches == FY_LAUNCHES, f"exact-tier launches {launches}, want {FY_LAUNCHES}")
@@ -1696,7 +2312,8 @@ def phase_live_updates(dev, world, fy):
     gather.row_gather.launches = 0
     after = probe_engine.serve_batch([probe])[0]
     torch.cuda.synchronize()
-    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather)}
     require(launches == FY_LAUNCHES, f"launches of the request after the updates {launches}, want {FY_LAUNCHES}")
     moved, after_s = freshness_moved(target, after)
     require(moved, f"the fav bursts did not move tweet {target.id}'s score ({target.score} -> {after_s})")
@@ -1749,8 +2366,8 @@ def phase_live_updates(dev, world, fy):
     gather.row_gather.launches = 0
     ids, _ = ann.get_tweet_candidates_batch(index, src, ann_cfg)
     torch.cuda.synchronize()
-    query_launches = {"run_collapse": seg_scan.run_collapse_sorted.launches,
-                      "row_gather": gather.row_gather.launches}
+    query_launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                      "row_gather": _build.launches(gather.row_gather)}
     require(all(n > 0 for n in query_launches.values()), f"a kernel of the refreshed-index query never launched: "
             f"{query_launches}")
     require(row in ids[0].tolist(), f"faver {faver}'s SANN query over the refreshed index misses tweet {target.id}")
@@ -2242,7 +2859,8 @@ def light_ranker_lifecycle(dev, root):
     out = trainer.fit_from_files(dataset, LR_STEPS)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"row_gather": gather.row_gather.launches, "run_collapse": seg_scan.run_collapse_sorted.launches}
+    launches = {"row_gather": _build.launches(gather.row_gather),
+                "run_collapse": _build.launches(seg_scan.run_collapse_sorted)}
     require(launches == {"row_gather": LR_STEPS, "run_collapse": LR_STEPS},
             f"the light ranker's {LR_STEPS} steps launched {launches}, not one row_gather and one run_collapse a step")
     sb = light_ranker.featurize(hd, fids, held_vals, device=dev)
@@ -2433,7 +3051,8 @@ def phase_tweet_mixer(dev):
     gather.row_gather.launches = 0
     home = tmp.run_product(fresh, HOME, q)
     torch.cuda.synchronize()
-    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches}
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather)}
     want = tweet_mixer_world.expected_launches(names, q)
     print(f"tweet_mixer: one Home request (user {q.user_id}, {len(q.recent_engagement_ids)} recent tweets) -> "
           f"{len(home)} candidates, launches {launches}; the routed pipelines make {want}")
@@ -2752,11 +3371,12 @@ def time_collapse_rows(ids, perm, dy, num_rows, label, hold_to_plain=True):
     side's time on CUDA events and in device time, warm and with the L2
     cold. The kernel writes the whole dense gradient, zeros included (above
     ``seg_scan.FILL_BYTES``, after a ``torch.zeros`` fill, which is timed with it)."""
-    before = seg_scan.run_collapse_rows.launches
+    before = _build.launches(seg_scan.run_collapse_rows)
     got = seg_scan.run_collapse_rows(ids, perm, dy, num_rows)
     again = seg_scan.run_collapse_rows(ids, perm, dy, num_rows)
     torch.cuda.synchronize()
-    require(seg_scan.run_collapse_rows.launches == before + 2, f"run_collapse_rows: not one launch a call at {label}")
+    require(_build.launches(seg_scan.run_collapse_rows) == before + 2,
+            f"run_collapse_rows: not one launch a call at {label}")
     plain = seg_scan.run_collapse_rows_plain(ids, perm, dy, num_rows)
     keep = (ids >= 0) & (ids < num_rows)
     rows_unsorted = torch.empty(ids.shape, dtype=torch.long, device=ids.device).scatter_(
@@ -2871,8 +3491,9 @@ def train_full_width(dev, name, model, loss_fn, batches, hits_fn):
     gather.row_gather.launches = 0
     loss0 = float(tr.train_step(first)["loss"])
     torch.cuda.synchronize()
-    launches = {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches,
-                "run_collapse_rows": seg_scan.run_collapse_rows.launches}
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather),
+                "run_collapse_rows": _build.launches(seg_scan.run_collapse_rows)}
     require(launches == EMB_LAUNCHES[name], f"{name} step launches {launches}, want {EMB_LAUNCHES[name]}")
     inputs = collapse_inputs(tr, put_batch(next(batches), dev))
     timed = [put_batch(next(batches), dev) for _ in range(EMB_TIMED)]
@@ -2993,7 +3614,8 @@ def realgraph_card_against_cpu(dev):
         ids, scores = realgraph.top_edges(tw, p, users.to(where), now, RG_DEGREE // 2)
         if where.type == "cuda":
             torch.cuda.synchronize()
-            require(gather.row_gather.launches == 1, f"top_edges made {gather.row_gather.launches} row_gather launches")
+            made = _build.launches(gather.row_gather)
+            require(made == 1, f"top_edges made {made} row_gather launches")
         runs.append((ids.cpu().numpy(), scores.cpu().numpy()))
     moved = check_same_ranking(*runs[0], *runs[1], 1e-5, 1e-6, "RealGraph top_edges card vs CPU")
     print(f"embedding_training: RealGraph ({RG_EVENTS} events folded into [{RG_USERS}, {RG_DEGREE}] edges on the host "
@@ -3025,7 +3647,7 @@ def wals_card_against_cpu(dev):
         ids, scores = wals.similar_items(vec, m.item_factors, EMB_K, exclude=hist.to(where))
         if where.type == "cuda":
             torch.cuda.synchronize()
-            require(gather.row_gather.launches == 1, "consumer_embedding made no row_gather launch")
+            require(_build.launches(gather.row_gather) == 1, "consumer_embedding made no row_gather launch")
         runs.append((m, vec.cpu(), ids.cpu().numpy()[None], scores.cpu().numpy()[None], fit_s))
     (m_card, v_card, ids, scores, card_s), (m_cpu, v_cpu, want_ids, want_scores, cpu_s) = runs
     f_err = max(float(((a.cpu() - b).abs() / (b.abs() + 1e-3)).max()) for a, b in zip(m_card, m_cpu))
@@ -3152,8 +3774,9 @@ def counted(fn):
     seg_scan.run_collapse_sorted.launches = gather.row_gather.launches = seg_scan.run_collapse_rows.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {"run_collapse": seg_scan.run_collapse_sorted.launches, "row_gather": gather.row_gather.launches,
-                 "run_collapse_rows": seg_scan.run_collapse_rows.launches}
+    return out, {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                 "row_gather": _build.launches(gather.row_gather),
+                 "run_collapse_rows": _build.launches(seg_scan.run_collapse_rows)}
 
 
 def launch_times_us(fn):
@@ -3944,6 +4567,7 @@ def phase_mesh_training(dev):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
     world = build_world(dev)
@@ -3961,6 +4585,7 @@ def main() -> int:
     by_path["exact_tier"], tier_scans = phase_exact_tier(world, (sann_ids, sann_scores), sann_recall, fy)
     by_path["live"], live_times = phase_live_updates(dev, world, fy)
     phase_new_path_times(tier_scans, live_times)
+    by_path["home_pipeline"] = phase_home_pipeline(dev, fy)
     by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
     emb = phase_apart("--embedding-training", "embedding_training")
     by_path["embedding_training"] = emb["launches"]
@@ -3979,6 +4604,7 @@ def main() -> int:
     print(f"profiler: {PROFILER['sessions']} device-time sessions, {PROFILER['again']} of them opened again after "
           f"one that saw too little; {PROFILER['short']} times taken over kernel events the profiler left out, most "
           f"often of {PROFILER['left_out'].most_common(3)}")
+    print(f"chip_smoke: {card_line()}; the whole script took {time.perf_counter() - t_start:.1f} s")
     # launches: the counted batches of every path together; the times are at the SANN shapes
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -563,3 +563,34 @@ def test_table_read_gradient_on_the_card_matches_the_cpu(cuda_device):
     for k in grads[1]:
         scale = float(grads[1][k].abs().max())
         np.testing.assert_allclose(grads[0][k].numpy(), grads[1][k].numpy(), rtol=1e-4, atol=1e-5 * scale, err_msg=k)
+
+
+def test_launch_counter_counts_every_thread(cuda_device):
+    """8 threads launching row_gather at once: the counter gains exactly their
+    launches (the recommendation engine launches from its pool threads)."""
+    import threading
+
+    from the_algorithm_tpu_torch import _build
+
+    table = torch.arange(4096 * 64, dtype=torch.float32, device=cuda_device).reshape(4096, 64)
+    ids = torch.arange(0, 4096, 7, dtype=torch.int32, device=cuda_device)
+    want = gather.row_gather_plain(ids, table)[0]
+    per_thread, threads = 200, 8
+    start, errors = threading.Barrier(threads), []
+
+    def launch():
+        start.wait()
+        for _ in range(per_thread):
+            (got,) = gather.row_gather(ids, table)
+            if not torch.equal(got, want):
+                errors.append("row_gather disagreed with its plain version")
+
+    before = _build.launches(gather.row_gather)
+    workers = [threading.Thread(target=launch) for _ in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    torch.cuda.synchronize()
+    assert not errors, errors[:1]
+    assert _build.launches(gather.row_gather) - before == threads * per_thread

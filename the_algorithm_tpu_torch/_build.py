@@ -31,6 +31,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# guards every wrapper's launch counter: the recommendation engine launches
+# kernels from its pool threads, and a bare ``+= 1`` can lose a count
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -108,3 +111,16 @@ def check(err: int, name: str) -> None:
     """Raise on a refused or failed launch (the C side returns cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch counter)
+    under one lock, so launches from several threads are all counted."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def launches(wrapper) -> int:
+    """``wrapper.launches``, read under the counters' lock."""
+    with _count_lock:
+        return wrapper.launches

@@ -7,6 +7,7 @@ states) put theirs on the card unless the caller names another device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,10 @@ def resolve(device, what: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{what} builds on the GPU by default and none is available: pass device='cpu'")
     return device
+
+
+def host_array(table) -> np.ndarray:
+    """A host numpy copy of a table: a tensor on any device, or an array."""
+    if isinstance(table, torch.Tensor):
+        return table.detach().cpu().numpy()
+    return np.asarray(table)

@@ -266,6 +266,20 @@ def score_fn(model: MaskNet, weights: torch.Tensor) -> Callable[[np.ndarray], np
     return predict
 
 
+def predict_fn(model: MaskNet) -> Callable[[np.ndarray], np.ndarray]:
+    """The per-request pipeline's predict fn (``home_mixer.MaskNetScorer``):
+    features [B, F] → the sigmoid heads [B, H] f32, numpy in and out,
+    computed on the model's device."""
+    device = next(model.parameters()).device
+
+    def predict(features: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(np.asarray(features, np.float32)).to(device)
+        with torch.inference_mode():
+            return torch.sigmoid(model(x)).cpu().numpy()
+
+    return predict
+
+
 def multi_task_loss(
     logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

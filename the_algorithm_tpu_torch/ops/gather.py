@@ -160,7 +160,7 @@ def row_gather(ids: torch.Tensor, *tables: torch.Tensor) -> Tuple[torch.Tensor, 
         else:
             err = _build.lib().row_gather_words(*args, sms, stream)
     _build.check(err, f"row_gather_{plan.path}")
-    row_gather.launches += 1
+    _build.count_launch(row_gather)
     return tuple(o.reshape(ids.shape + (o.shape[1],)) for o in outs)
 
 

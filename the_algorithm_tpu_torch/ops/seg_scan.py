@@ -163,7 +163,7 @@ def run_collapse_sorted(
             ids.data_ptr(), *vp, out_ids.data_ptr(), *op, Q, W, k, *plan, stream
         )
     _build.check(err, "run_collapse_sorted")
-    run_collapse_sorted.launches += 1
+    _build.count_launch(run_collapse_sorted)
     return (out_ids,) + tuple(outs)
 
 
@@ -273,7 +273,7 @@ def run_collapse_rows(ids: torch.Tensor, perm: torch.Tensor, dy: torch.Tensor, n
                                              scratch.data_ptr(), flags.data_ptr(), n, D, num_rows, plan.grid,
                                              int(vec), int(not plan.fill), stream)
     _build.check(err, "run_collapse_rows")
-    run_collapse_rows.launches += 1
+    _build.count_launch(run_collapse_rows)
     return grad
 
 
