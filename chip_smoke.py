@@ -127,7 +127,29 @@ Phases, each printing its result on its own line:
     Phoenix, the rest); the device's busy share; the new row_gather
     launches (the three keyed groups, Phoenix's ``author_emb``) against
     ``index_select``;
-13. tweet_mixer, in a child process after the main process's last profiler
+13. edge, after home_pipeline in the main process, over the For You world,
+    engines and f32 MaskNet of step 5 and run B's product registry of step
+    12: an ``InferenceServer`` with two timeline products, ``for_you`` (a
+    ``BatchedTimelineFront`` over the serving engine, max batch 32, 10 ms)
+    and ``for_you_mixer`` (run B's product); 64 concurrent
+    ``POST /v1/timelines/for_you`` from 32 client threads, each answer
+    byte-equal to the URT of its own recorded batch answer, at least one
+    batch of more than one request, launches 1 run_collapse + 16 row_gather
+    a recorded batch, the server's ``errors`` 0, requests/s and p50/p99
+    beside step 5's 2-worker front; run B's 4 users twice through
+    ``for_you_mixer``, each byte-equal to its recorded timeline's URT, 1 + 5
+    launches a request, no ``failures`` and no mixer ``failed`` counter;
+    4 x 16 of run A's host-catalog rows as segdense ``records`` (names and
+    precomputed ids, densified bit for bit) and as ``instances`` through
+    the f32 MaskNet in a ``ModelRegistry``, within rtol 1e-5 / atol 1e-6 of
+    its direct forward; the native front (``serving_core.cc``) over the
+    same model, 64 requests of 16 rows from 16 clients, coalesced, within
+    the same bound, no HTTP error and no held exception, beside the JSON
+    ``instances`` path for the same rows; warmup over the registry at
+    buckets 1, 8, 64, 256, and a wrong-width spec failing closed; the
+    aggregation catalog's 18 stores folded on the card and on the CPU
+    (4,096 seeded events, rtol 1e-6, timestamps exact);
+14. tweet_mixer, in a child process after the main process's last profiler
     session (``chip_smoke.py --tweet-mixer`` runs it alone): tweet-mixer's
     Home product (20 pipelines) at bench.py's sizes
     (``data/tweet_mixer_world.py``) over the step-3 SANN world and the
@@ -145,9 +167,9 @@ Phases, each printing its result on its own line:
     single 512-byte TwHIN rows; the UTEG family's seed rows and dedup at
     R=1, one per seed count; UTG's two hops and dedup at B=1), with no
     copy_ yardstick;
-14. embedding_training, in a child process after the others
+15. embedding_training, in a child process after the others
     (``chip_smoke.py --embedding-training`` runs it alone): the copy_
-    yardstick at step 13's collapse shapes; small-width f32 two-tower and
+    yardstick at step 14's collapse shapes; small-width f32 two-tower and
     TwHIN models through the ``Trainer`` on the card against the CPU (first
     gradients, params after 3 steps); both models at tweet-mixer's widths
     (16,384 users x 2,000,000 items x 128 f32 tables) trained on
@@ -162,9 +184,9 @@ Phases, each printing its result on its own line:
     ``index_put_(accumulate=True)``), with times; RealGraph's edge model
     (fit, ``top_edges``) and a WALS fit (``consumer_embedding``,
     ``similar_items``), each card against CPU; then the trained tables
-    served through the Home dense engines of a world built as step 13's,
+    served through the Home dense engines of a world built as step 14's,
     the planted items in a served user's dense top-200s;
-15. collapse_rows, in a child process after that one (``chip_smoke.py
+16. collapse_rows, in a child process after that one (``chip_smoke.py
     --collapse-rows`` runs it alone): ``run_collapse_rows``' run-length
     sweep at D=128 (4,096 slots into 6, 64, 4,096, 16,384, 65,536, 262,144
     and 2,000,000 rows; 100,000 into one row and into 1,000), each shape held
@@ -174,7 +196,7 @@ Phases, each printing its result on its own line:
     then, at the item- and user-table shapes, the kernel launched while
     another stream of the process keeps the card busy (its cooperative
     launch: the call finishes with a quiet run's bits);
-16. mesh, in a child process after that one (``chip_smoke.py --mesh`` runs
+17. mesh, in a child process after that one (``chip_smoke.py --mesh`` runs
     it alone, building the SANN world itself): one NCCL rank and a 1x1
     (data, model) mesh (``core/mesh.py``); bench.py's lookup
     (bench.py:331-393: a 16,000,000 x 128 f32 table, 16 iterations of
@@ -192,7 +214,7 @@ Phases, each printing its result on its own line:
     (``--mesh-rank``, each its own process): the hybrid form on a 2x2 mesh
     and the index-sharded form on a 1x4 mesh against the world-1 lists, a
     4-way multiget of 65,536 ids bit-equal to ``index_select``;
-17. mesh_training, in a child process after that one (``chip_smoke.py
+18. mesh_training, in a child process after that one (``chip_smoke.py
     --mesh-training`` runs it alone): one NCCL rank and a 1x1 mesh; two-tower
     and TwHIN with ``explicit_lookup`` at tweet-mixer's widths (16,384 x
     2,000,000 x 128, B=4,096, adam 1e-2) through the sharded ``Trainer``
@@ -212,8 +234,8 @@ Phases, each printing its result on its own line:
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
-updates, the per-request For You product, embedding training, the mesh
-layer's serving and training halves),
+updates, the per-request For You product, the serving edge, embedding
+training, the mesh layer's serving and training halves),
 error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
@@ -244,6 +266,7 @@ from the_algorithm_tpu_torch.core import mesh as meshlib
 from the_algorithm_tpu_torch.core.config import Params, param_scope
 from the_algorithm_tpu_torch.core.decider import Decider
 from the_algorithm_tpu_torch.data import foryou_world, sann_world, tweet_mixer_world
+from the_algorithm_tpu_torch.features import aggregation_configs as ac
 from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.core.metrics import StatsReceiver
 from the_algorithm_tpu_torch.mixers import batched_foryou as bf
@@ -271,8 +294,12 @@ from the_algorithm_tpu_torch.pipeline.component import (Candidate, CandidatePipe
                                                         QueryFeatureHydrator, Selector)
 from the_algorithm_tpu_torch.pipeline.mixer import EntryKind
 from the_algorithm_tpu_torch.search import earlybird
+from the_algorithm_tpu_torch.serving import segdense as sd
+from the_algorithm_tpu_torch.serving import warmup as wu
 from the_algorithm_tpu_torch.serving.batcher import BatcherConfig, RequestBatcher
 from the_algorithm_tpu_torch.serving.model_registry import ModelRegistry, save_params_npz
+from the_algorithm_tpu_torch.serving.native_front import NativeClient, NativeFrontConfig, NativePredictFront
+from the_algorithm_tpu_torch.serving.product_front import BatchedTimelineFront, default_timeline_builder
 from the_algorithm_tpu_torch.serving.server import InferenceServer
 from the_algorithm_tpu_torch.simclusters import ann
 from the_algorithm_tpu_torch.simclusters import tweet_embeddings as te
@@ -1098,6 +1125,12 @@ def schema_columns():
     return out
 
 
+def pct(xs, q):
+    """The ``q`` quantile of ``xs``: the value at rank ceil(q (n - 1))."""
+    xs = np.sort(xs)
+    return float(xs[min(len(xs) - 1, int(np.ceil(q * (len(xs) - 1))))])
+
+
 def ranked(lists, k):
     """Served lists of Candidates as [R, k] ids (PAD_ID after the last) and
     scores (0 after)."""
@@ -1273,10 +1306,18 @@ def phase_foryou(dev, sann, cand):
         return served.serve_batch(qs)
 
     front = RequestBatcher(serve, BatcherConfig(max_batch_size=FY_R, max_delay_ms=10.0), n_workers=2)
+    front_lat = []
+
+    def ask(i):
+        t0a = time.perf_counter()
+        out = front.serve(queries(1, base=300 + i)[0], timeout=300)
+        front_lat.append(1e3 * (time.perf_counter() - t0a))
+        return out
+
     try:
         with ThreadPoolExecutor(FY_FRONT) as pool:
             t0f = time.perf_counter()
-            answers = list(pool.map(lambda i: front.serve(queries(1, base=300 + i)[0], timeout=300), range(FY_FRONT)))
+            answers = list(pool.map(ask, range(FY_FRONT)))
             front_s = time.perf_counter() - t0f
     finally:
         front.close()
@@ -1287,8 +1328,10 @@ def phase_foryou(dev, sann, cand):
           f"(request build, pack, device pass, fetch) {1e3 * (t2 - t1):.1f} ms")
     print(f"foryou: serial R=1 latency over {FY_SERIAL} requests: p50 {lat[len(lat) // 2]:.1f} ms, p99 "
           f"{lat[min(len(lat) - 1, int(np.ceil(0.99 * (len(lat) - 1))))]:.1f} ms")
+    front_rate = (FY_FRONT / front_s, pct(front_lat, 0.5), pct(front_lat, 0.99))
     print(f"foryou: 2-worker front (max batch {FY_R}, 10 ms) answered {FY_FRONT} concurrent requests, each a "
-          f"non-empty list, in {front_s:.2f} s ({FY_FRONT / front_s:.1f} requests/s; batches of {sizes})")
+          f"non-empty list, in {front_s:.2f} s ({front_rate[0]:.1f} requests/s, p50 {front_rate[1]:.1f} ms, p99 "
+          f"{front_rate[2]:.1f} ms; batches of {sizes})")
 
     # the card against the port on the CPU, the same requests
     _, cpu_cols = f32.columns(batch[:FY_CPU_R])
@@ -1414,7 +1457,7 @@ def phase_foryou(dev, sann, cand):
     # the live phase's freshness probe: the serving engine with small creation times
     probe = engine(served.scorer, lift=spread_lift(lift), max_age_s=10 ** 9)
     return launches, dict(served=served, sources=sources, lift=lift, queries=queries, probe=probe, world=world,
-                          spread=spread, ref=ref, m16=m16, follows=follows, index=index)
+                          spread=spread, ref=ref, m16=m16, follows=follows, index=index, front_rate=front_rate)
 
 
 # the per-request For You product (home_pipeline): the JAX package's product
@@ -1474,10 +1517,6 @@ class StepClock:
             self.cur[step] += 1e3 * (time.perf_counter() - t0)
 
     def summary(self, rest: str) -> str:
-        def pct(xs, q):
-            xs = np.sort(xs)
-            return xs[min(len(xs) - 1, int(np.ceil(q * (len(xs) - 1))))]
-
         cols = {s: [r[s] for r in self.rows] for s in self.STEPS}
         cols[rest] = [r["total"] - sum(r[s] for s in self.STEPS) for r in self.rows]
         cols["total"] = [r["total"] for r in self.rows]
@@ -1795,7 +1834,9 @@ def phase_home_pipeline(dev, fy):
     held exactly; the f32 product on the card against the port on the CPU;
     bf16 against f32; host-clock splits; the device's busy share; the new
     row_gather launches against index_select. Returns one request's
-    launches."""
+    launches, and for the edge phase run B's product registry, stats,
+    checked pipeline and queries, and the first EDGE_ROWS_A_REQUEST rows of
+    each run-A request's host-catalog matrix."""
     t_phase = time.perf_counter()
     world, sources, lift = fy["world"], fy["sources"], spread_lift(fy["lift"])
     queries = home_queries(fy)
@@ -1869,6 +1910,7 @@ def phase_home_pipeline(dev, fy):
           f"{worst_pair:.3g} (bound {HP_PAIR_TOL}); no seen id, none past the max age; each request's "
           f"{fs.total_width(fs.WIDE_SCHEMA)}-column matrix against the device assembly within {HP_ASSEMBLE_TOL}, worst "
           f"|diff| by family: " + ", ".join(f"{f} {e:.3g}" for f, (e, n) in worst.items() if e > 0))
+    edge_rows = np.concatenate([x[:EDGE_ROWS_A_REQUEST] for _, _, x in matrices])  # the edge phase's model inputs
     del matrices
 
     # run B: the product, bf16, Phoenix and its loop, twice
@@ -1990,7 +2032,427 @@ def phase_home_pipeline(dev, fy):
                                        f"{'+'.join(str(t.shape[1] * t.element_size()) for t in tables)} B")
     require(len(times) == 4, f"the new path's row_gather launches seen: {sorted(times)}")
     print(f"home_pipeline: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(registry=registry, stats=stats_b, checked=checked, queries=queries, rows=edge_rows)
+
+
+# the serving edge (edge): the HTTP timeline endpoint over the batched engine
+# and over run B's product, segdense records, the native front, warmup and the
+# aggregation catalog, over what the foryou and home_pipeline phases built
+EDGE_ROWS_A_REQUEST = 128  # rows kept of each run-A request's host-catalog matrix: 8 x 128 = 1,024
+EDGE_REQUESTS = 64  # concurrent timeline requests through BatchedTimelineFront
+EDGE_CLIENTS = 32  # their client threads
+EDGE_BASE = 800  # their user ids
+EDGE_MIXER_USERS = 4  # run-B users sent to the per-request product, each twice
+EDGE_RECORDS = (4, 16)  # records requests x rows each
+NATIVE_REQUESTS, NATIVE_CLIENTS, NATIVE_ROWS = 64, 16, 16  # of 1,024 rows: run A's kept rows
+NATIVE_MAX_ROWS, NATIVE_DELAY_MS = 256, 2.0
+WARM_BUCKETS = (1, 8, 64, 256)
+AGG_EVENTS = 4096
+AGG_CAPACITY = 4096  # rows a config's store holds: every key of the batch fits
+AGG_KEYS = {"user_id": 16_384, "author_id": 4_096, "engager_id": 16_384, "mentioned_user_id": 16_384,
+            "original_author_id": 4_096, "topic_id": 1_024, "list_id": 1_024, "day_of_week": 7, "hour_of_day": 24,
+            "tweet_id": 1 << 17}  # the For You world's users, authors and tweets
+# the f32 MaskNet served through records and the native front against its
+# direct forward: the same rows in other batches (cuBLAS may sum in another
+# order for another batch size; TF32 is off)
+EDGE_RTOL, EDGE_ATOL = 1e-5, 1e-6
+HTTP_TIMEOUT = 300  # seconds an HTTP call may take
+SOCKET_TIMEOUT = 120  # seconds a native client's socket operation may take
+EDGE_MODEL = "masknet_f32"
+
+
+class BatchRecorder:
+    """``engine``'s ``serve_batch``, each batch's queries, answers and host
+    seconds kept."""
+
+    def __init__(self, engine):
+        self.engine, self.batches, self.seconds, self.lock = engine, [], [], threading.Lock()
+
+    def serve_batch(self, queries, params=None):
+        t0 = time.perf_counter()
+        out = self.engine.serve_batch(queries, params)
+        with self.lock:
+            self.batches.append((list(queries), out))
+            self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+class RunRecorder:
+    """``product``'s ``run``, each (user, timeline) kept."""
+
+    def __init__(self, product):
+        self.product, self.timelines = product, []
+
+    def run(self, query, params=None):
+        tl = self.product.run(query, params)
+        self.timelines.append((int(query.user_id), tl))
+        return tl
+
+
+def http_post(port, path, payload):
+    """POST JSON: the answer's body and the host seconds. A status other
+    than 200, or no answer within HTTP_TIMEOUT, raises."""
+    body = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+        require(r.status == 200, f"HTTP {r.status} from {path}")
+        out = r.read()
+    return out, time.perf_counter() - t0
+
+
+def reset_launches():
+    torch.cuda.synchronize()
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+
+
+def read_launches():
+    torch.cuda.synchronize()
+    return {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+            "row_gather": _build.launches(gather.row_gather)}
+
+
+def latency(seconds):
+    """p50 / p99 of host seconds, in ms."""
+    ms = [1e3 * s for s in seconds]
+    return f"p50 {pct(ms, 0.5):.1f} ms, p99 {pct(ms, 0.99):.1f} ms"
+
+
+def as_records(rows, names, ids):
+    """Each row's non-zero columns as a record: string names for the even
+    rows, precomputed feature ids for the odd ones."""
+    return [{(names if b % 2 == 0 else ids)[j]: float(row[j]) for j in np.flatnonzero(row)}
+            for b, row in enumerate(rows)]
+
+
+def agg_events(seed):
+    """AGG_EVENTS seeded engagement events over AGG_KEYS: every label of the
+    catalog, non-negative engagement values, non-decreasing timestamps."""
+    rng = np.random.default_rng(seed)
+    batch = {k: rng.integers(1, n, AGG_EVENTS) for k, n in AGG_KEYS.items()}
+    batch["user_id"][::16] = 0  # logged-out events: the user-keyed configs drop them
+    batch["is_in_network"] = rng.integers(0, 2, AGG_EVENTS)
+    for label in ac.LABELS_V2 + ac.NEGATIVE_LABELS:
+        batch[label] = (rng.random(AGG_EVENTS) < 0.3).astype(np.float32)
+    batch["engagement"] = rng.exponential(size=AGG_EVENTS).astype(np.float32)
+    batch["timestamp"] = np.sort(foryou_world.NOW - rng.integers(0, 86_400, AGG_EVENTS)).astype(np.int32)
+    return batch
+
+
+def phase_edge(dev, fy, home):
+    """The serving edge on the card, over the foryou phase's world, engines
+    and f32 MaskNet and the home_pipeline phase's run-B product registry:
+    the HTTP timeline endpoint over ``BatchedTimelineFront`` and over the
+    per-request product, segdense records and the native front onto the f32
+    MaskNet, warmup, and the aggregation catalog folded on the card against
+    the CPU. Returns the launches of the two timeline runs together."""
+    t_phase = time.perf_counter()
+    F = fs.total_width(fs.WIDE_SCHEMA)
+    ref = fy["ref"]
+    rows = home["rows"]
+    require(rows.shape == (8 * EDGE_ROWS_A_REQUEST, F) and bool(np.isfinite(rows).all()), f"run A's rows {rows.shape}")
+
+    def build(arrays):
+        model = masknet.MaskNet(ref.config, device=dev)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in arrays.items()})
+        return masknet.predict_fn(model)
+
+    recorder = BatchRecorder(fy["served"])
+    front = BatchedTimelineFront(recorder, BatcherConfig(max_batch_size=FY_R, max_delay_ms=10.0),
+                                 timeout_s=HTTP_TIMEOUT)
+    mixer = RunRecorder(home["registry"].get("for_you"))
+    products = hp.HomeProductPipelineRegistry()
+    products.register("for_you", front)
+    products.register("for_you_mixer", mixer)
+    home_q = {int(q.user_id): q for q in home["queries"]}
+
+    def query_builder(product, payload):
+        u = int(payload["user_id"])
+        return fy["queries"](1, base=u)[0] if product == "for_you" else fresh(home_q[u])
+
+    densifier = sd.RequestDensifier(sd.spec_from_schema(fs.WIDE_SCHEMA))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        save_params_npz(os.path.join(root, EDGE_MODEL, "1"), {k: v.cpu().numpy() for k, v in ref.state_dict().items()})
+        reg = ModelRegistry(root)
+        reg.scan_once()
+        srv = InferenceServer(reg, build, batcher_config=BatcherConfig(max_batch_size=NATIVE_MAX_ROWS, max_delay_ms=2.0),
+                              densifiers={EDGE_MODEL: densifier}, products=products, query_builder=query_builder)
+        srv.start()
+        try:
+            launches = edge_timelines(srv, recorder, mixer, home, fy)
+            edge_records(srv, densifier, ref, rows)
+            edge_native(srv, ref, rows)
+            edge_warmup(reg, build, rows)
+            counters = srv.stats.counters()
+            require(counters.get("errors", 0) == 0, f"the server counted {counters.get('errors')} errors")
+        finally:
+            srv.close()
+            front.close()
+    edge_aggregation(dev)
+    print(f"edge: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def concurrent_rate(serve):
+    """EDGE_REQUESTS calls of ``serve(user)`` from EDGE_CLIENTS threads:
+    (requests/s, each call's host seconds)."""
+    secs = [0.0] * EDGE_REQUESTS
+
+    def one(i):
+        t0 = time.perf_counter()
+        require(len(serve(EDGE_BASE + i)) > 0, f"user {EDGE_BASE + i}: an empty answer")
+        secs[i] = time.perf_counter() - t0
+
+    with ThreadPoolExecutor(EDGE_CLIENTS) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(one, range(EDGE_REQUESTS)))
+        return EDGE_REQUESTS / (time.perf_counter() - t0), secs
+
+
+def edge_timelines(srv, recorder, mixer, home, fy):
+    """Steps 1-2: EDGE_REQUESTS concurrent ``/v1/timelines/for_you`` through
+    the batched front, then run B's users through ``for_you_mixer``; each
+    answer byte-equal to its own recorded timeline's URT JSON, launches
+    exact, no server error, no failure in the product. Beside the first, in
+    this process just before it: the same requests through a 2-worker
+    ``RequestBatcher`` and through ``BatchedTimelineFront`` called without
+    HTTP. Returns the launches of both counted runs together."""
+    config = BatcherConfig(max_batch_size=FY_R, max_delay_ms=10.0)
+    rates = {}
+    pair = RequestBatcher(fy["served"].serve_batch, config, n_workers=2)
+    try:
+        rates["2-worker RequestBatcher"] = concurrent_rate(lambda u: pair.serve(fy["queries"](1, base=u)[0],
+                                                                               timeout=HTTP_TIMEOUT))
+    finally:
+        pair.close()
+    direct = BatchedTimelineFront(fy["served"], config, timeout_s=HTTP_TIMEOUT)
+    try:
+        rates["BatchedTimelineFront without HTTP"] = concurrent_rate(
+            lambda u: direct.run(fy["queries"](1, base=u)[0]).entries)
+    finally:
+        direct.close()
+    reset_launches()
+    users = list(range(EDGE_BASE, EDGE_BASE + EDGE_REQUESTS))
+    with ThreadPoolExecutor(EDGE_CLIENTS) as pool:
+        t0 = time.perf_counter()
+        answers = list(pool.map(lambda u: http_post(srv.port, "/v1/timelines/for_you", {"user_id": u}), users))
+        wall = time.perf_counter() - t0
+    batched = read_launches()
+    nb = len(recorder.batches)
+    want = {k: nb * v for k, v in FY_LAUNCHES.items()}
+    require(batched == want, f"timeline edge launches {batched}, want {want} ({FY_LAUNCHES} a batch, {nb} batches)")
+    sizes = [len(qs) for qs, _ in recorder.batches]
+    require(sum(sizes) == EDGE_REQUESTS and max(sizes) > 1, f"the front's batches {sizes}")
+    served = {int(q.user_id): (q, out) for qs, outs in recorder.batches for q, out in zip(qs, outs)}
+    marshal = []
+    for u, (body, _) in zip(users, answers):
+        q, cands = served[u]
+        require(0 < len(cands) <= FY_TOP_K, f"user {u}: {len(cands)} candidates")
+        t0 = time.perf_counter()
+        want = urt.marshal_timeline(default_timeline_builder(q, cands)).to_json().encode()
+        marshal.append(time.perf_counter() - t0)
+        require(body == want, f"user {u}: the endpoint's URT is not its batch answer's")
+    counters = srv.stats.counters()
+    require(counters.get("errors", 0) == 0, f"the server counted {counters.get('errors')} errors")
+    require(counters.get("timeline_requests/for_you") == EDGE_REQUESTS, f"counters {counters}")
+    print(f"edge: {EDGE_REQUESTS} concurrent POST /v1/timelines/for_you from {EDGE_CLIENTS} threads -> 200, each "
+          f"byte-equal to the URT of its own batch answer; the front's batches {sizes}; launches {batched} "
+          f"({FY_LAUNCHES} a batch, as derived); server errors 0")
+    front_rate = fy["front_rate"]
+    print(f"edge: host clock (not a benchmark; {card_line()}): the timeline endpoint over BatchedTimelineFront (max "
+          f"batch {FY_R}, 10 ms) {EDGE_REQUESTS / wall:.1f} requests/s, {latency([s for _, s in answers])}; just "
+          f"before it, the same {EDGE_REQUESTS} requests from {EDGE_CLIENTS} threads: "
+          + "; ".join(f"{name} {r:.1f} requests/s, {latency(secs)}" for name, (r, secs) in rates.items())
+          + f"; the foryou phase's 2-worker front (before its profiler sessions) {front_rate[0]:.1f} requests/s, p50 "
+          f"{front_rate[1]:.1f} ms, p99 {front_rate[2]:.1f} ms; the engine's serve_batch "
+          + ", ".join(f"{1e3 * t:.1f}" for t in recorder.seconds) + f" ms a batch over {1e3 * wall:.1f} ms of "
+          f"wall; a timeline's Timeline + URT JSON alone {1e3 * np.mean(marshal):.2f} ms, "
+          f"{len(answers[0][0])} B")
+
+    # step 2: the per-request product behind the same endpoint, sequential requests
+    stats, checked = home["stats"], home["checked"]
+    n_before = len(checked.results)
+    mixer_users = [int(q.user_id) for q in home["queries"][:EDGE_MIXER_USERS]]
+    reset_launches()
+    answers = [(u, *http_post(srv.port, "/v1/timelines/for_you_mixer", {"user_id": u}))
+               for _ in range(2) for u in mixer_users]
+    product = read_launches()
+    want = {k: len(answers) * v for k, v in HP_LAUNCHES_B.items()}
+    require(product == want, f"per-request product launches {product}, want {want} ({HP_LAUNCHES_B} a request)")
+    require([u for u, _ in mixer.timelines] == [u for u, _, _ in answers], "the product ran other users")
+    for (u, body, _), (_, tl) in zip(answers, mixer.timelines):
+        tweets = [e for e in tl.entries if e.kind == EntryKind.TWEET]
+        require(0 < len(tweets) <= FY_TOP_K, f"user {u}: {len(tweets)} tweets")
+        require(body == urt.marshal_timeline(tl).to_json().encode(), f"user {u}: the endpoint's URT is not its run's")
+    failed = {k: v for k, v in stats.counters().items() if "failed" in k}
+    require(not failed, f"the mixer failed open: {failed}")
+    require(len(checked.results) - n_before == len(answers), "the scored pipeline ran another number of times")
+    for r in checked.results[n_before:]:
+        require(not r.failures, f"the scored pipeline failed open: {r.failures}")
+    counters = srv.stats.counters()
+    require(counters.get("errors", 0) == 0 and counters.get("timeline_requests/for_you_mixer") == len(answers),
+            f"counters {counters}")
+    print(f"edge: {len(answers)} POST /v1/timelines/for_you_mixer ({EDGE_MIXER_USERS} run-B users twice) -> 200, each "
+          f"byte-equal to its run's URT; launches {product} ({HP_LAUNCHES_B} a request, as derived); no failure in the "
+          f"scored pipeline or the mixer; host clock {latency([s for _, _, s in answers])}")
+    return {k: batched[k] + product[k] for k in batched}
+
+
+def edge_records(srv, densifier, ref, rows):
+    """Step 3: run A's rows as sparse records (names and precomputed ids)
+    densified bit for bit, and POSTed as records and as instances, both
+    within EDGE_RTOL / EDGE_ATOL of the direct f32 forward."""
+    n_req, per = EDGE_RECORDS
+    x = rows[:n_req * per]
+    spec = densifier.spec
+    names, ids = spec.feature_names, [int(i) for i in spec.feature_ids()]
+    by_name = [{names[j]: float(row[j]) for j in np.flatnonzero(row)} for row in x]
+    by_id = [{ids[j]: float(row[j]) for j in np.flatnonzero(row)} for row in x]
+    t0 = time.perf_counter()
+    dense_name, _ = densifier.densify(by_name)
+    t1 = time.perf_counter()
+    dense_id, _ = densifier.densify(by_id)
+    t2 = time.perf_counter()
+    require(np.array_equal(dense_name, x) and np.array_equal(dense_id, x), "the densified rows are not the source rows")
+    want = masknet.predict_fn(ref)(x)
+    got = {"records": [], "instances": []}
+    secs = {"records": [], "instances": []}
+    for r in range(n_req):
+        part = x[r * per:(r + 1) * per]
+        for form, payload in (("records", {"records": as_records(part, names, ids)}),
+                              ("instances", {"instances": part.tolist()})):
+            body, s = http_post(srv.port, f"/v1/models/{EDGE_MODEL}:predict", payload)
+            got[form].append(np.asarray(json.loads(body)["predictions"], np.float32))
+            secs[form].append(s)
+    for form, parts in got.items():
+        pred = np.concatenate(parts)
+        require(pred.shape == want.shape and bool(np.isfinite(pred).all()), f"{form}: predictions {pred.shape}")
+        err = float(np.abs(pred - want).max())
+        require(np.allclose(pred, want, rtol=EDGE_RTOL, atol=EDGE_ATOL),
+                f"{form}: {err:.3g} from the direct forward (rtol {EDGE_RTOL}, atol {EDGE_ATOL})")
+        print(f"edge: {n_req} POST {EDGE_MODEL}:predict of {per} rows as {form} -> 200, within {err:.3g} of the "
+              f"direct f32 forward (rtol {EDGE_RTOL}, atol {EDGE_ATOL}); host clock {latency(secs[form])} a request")
+    nz = int(np.count_nonzero(x))
+    print(f"edge: segdense densify of {len(x)} run-A rows ({nz / len(x):.0f} non-zero of {x.shape[1]} columns a row) "
+          f"bit-equal to the rows: {1e3 * (t1 - t0):.1f} ms with string keys (one feature_id a key), "
+          f"{1e3 * (t2 - t1):.1f} ms with precomputed ids (host clock)")
+
+
+def edge_native(srv, ref, rows):
+    """Step 4: the native front onto the f32 MaskNet: NATIVE_REQUESTS of
+    NATIVE_ROWS rows from NATIVE_CLIENTS clients, coalesced, each answer
+    within EDGE_RTOL / EDGE_ATOL of the direct forward; the same rows as
+    JSON instances beside it."""
+    F, heads = rows.shape[1], ref.config.num_heads
+    want = masknet.predict_fn(ref)(rows)
+    parts = [rows[i * NATIVE_ROWS:(i + 1) * NATIVE_ROWS] for i in range(NATIVE_REQUESTS)]
+    answers, secs = [None] * NATIVE_REQUESTS, [0.0] * NATIVE_REQUESTS
+    front = NativePredictFront(masknet.predict_fn(ref), NativeFrontConfig(
+        feature_width=F, out_width=heads, max_batch_rows=NATIVE_MAX_ROWS, max_delay_ms=NATIVE_DELAY_MS))
+    try:
+        def client(c):
+            cl = NativeClient(front.port, F, heads, timeout=SOCKET_TIMEOUT)
+            try:
+                for i in range(c, NATIVE_REQUESTS, NATIVE_CLIENTS):
+                    t0 = time.perf_counter()
+                    answers[i] = cl.predict(parts[i])
+                    secs[i] = time.perf_counter() - t0
+            finally:
+                cl.close()
+
+        with ThreadPoolExecutor(NATIVE_CLIENTS) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(client, range(NATIVE_CLIENTS)))  # a client's error or timeout raises here
+            wall = time.perf_counter() - t0
+        st = front.stats()
+        if front.error is not None:
+            raise front.error
+    finally:
+        front.close()
+    pred = np.concatenate(answers)
+    err = float(np.abs(pred - want).max())
+    require(np.allclose(pred, want, rtol=EDGE_RTOL, atol=EDGE_ATOL), f"native front {err:.3g} from the direct forward")
+    require(st["requests"] == NATIVE_REQUESTS and st["http_errors"] == 0 and st["avg_batch_rows"] > NATIVE_ROWS,
+            f"native front stats {st}")
+
+    def instances(i):
+        body, s = http_post(srv.port, f"/v1/models/{EDGE_MODEL}:predict", {"instances": parts[i].tolist()})
+        return np.asarray(json.loads(body)["predictions"], np.float32), s
+
+    with ThreadPoolExecutor(NATIVE_CLIENTS) as pool:
+        t0 = time.perf_counter()
+        json_answers = list(pool.map(instances, range(NATIVE_REQUESTS)))
+        json_wall = time.perf_counter() - t0
+    jpred = np.concatenate([a for a, _ in json_answers])
+    require(np.allclose(jpred, want, rtol=EDGE_RTOL, atol=EDGE_ATOL), "JSON instances off the direct forward")
+    json_bytes = len(json.dumps({"instances": parts[0].tolist()}).encode())
+    print(f"edge: native front (feature width {F}, {heads} heads, max {NATIVE_MAX_ROWS} rows, {NATIVE_DELAY_MS} ms): "
+          f"{NATIVE_REQUESTS} requests of {NATIVE_ROWS} rows from {NATIVE_CLIENTS} clients, within {err:.3g} of the "
+          f"direct f32 forward (rtol {EDGE_RTOL}, atol {EDGE_ATOL}); {st['batches']} batches, avg "
+          f"{st['avg_batch_rows']:.1f} rows, avg queue {st['avg_queue_us']:.0f} us, http_errors 0; held error None")
+    print(f"edge: host clock (not a benchmark; {card_line()}): native front {NATIVE_REQUESTS / wall:.1f} requests/s, "
+          f"{latency(secs)} ({4 + NATIVE_ROWS * F * 4} B a request body); JSON instances through the HTTP server "
+          f"{NATIVE_REQUESTS / json_wall:.1f} requests/s, {latency([s for _, s in json_answers])} ({json_bytes} B a "
+          f"request body)")
+
+
+def edge_warmup(reg, build, rows):
+    """Step 5: warmup over the registry at WARM_BUCKETS, every report ok; a
+    spec of the wrong width reports not ready with a reason and raises
+    nothing."""
+    stats = StatsReceiver()
+    specs = wu.registry_warmup_specs(reg, predict_builder=lambda name, params: build(params),
+                                     input_makers={EDGE_MODEL: lambda b: rows[:b]}, batch_buckets=WARM_BUCKETS)
+    reports = wu.run_warmup(specs, repeats=2, stats=stats)
+    require([r.model_name for r in reports] == [EDGE_MODEL] and all(r.ok for r in reports),
+            f"warmup: {[(r.model_name, r.ok, r.error) for r in reports]}")
+    bad = wu.WarmupSpec(f"{EDGE_MODEL}_wrong_width", specs[0].predict_fn,
+                        lambda b: np.zeros((b, rows.shape[1] - 1), np.float32), batch_buckets=(1, 8))
+    (broken,) = wu.run_warmup([bad], stats=stats)
+    require(not broken.ok and broken.error and not broken.bucket_seconds, f"the broken spec reported {broken}")
+    require(stats.counters() == {f"warmup/{EDGE_MODEL}/ok": 1, f"warmup/{EDGE_MODEL}_wrong_width/failed": 1},
+            f"warmup counters {stats.counters()}")
+    print(f"edge: warmup of {EDGE_MODEL} (a fresh model from the registry), repeats 2: ok; seconds by bucket "
+          + ", ".join(f"{b}: {s:.4f}" for b, s in reports[0].bucket_seconds.items())
+          + f" (host clock, the first bucket with the model's first use); the wrong-width spec not ready: "
+          f"{broken.error[:120]!r}")
+
+
+def edge_aggregation(dev):
+    """Step 6: the aggregation catalog's stores on the card and on the CPU,
+    one seeded batch folded through every config: within FOLD_RTOL,
+    timestamps exact, the same rows allocated."""
+    catalog = ac.build_catalog()
+    batch = agg_events(HP_SEED)
+    card, cpu = ac.init_stores(catalog, AGG_CAPACITY), ac.init_stores(catalog, AGG_CAPACITY, device="cpu")
+    require(all(s.values.device.type == "cuda" for s, _ in card.values()), "init_stores did not build on the card")
+    secs = {}
+    for where, stores in (("card", card), ("cpu", cpu)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in catalog:
+            store, resolver = stores[c.name]
+            stores[c.name] = (ac.apply_events(c, store, resolver, batch), resolver)
+        torch.cuda.synchronize()
+        secs[where] = time.perf_counter() - t0
+    worst, n_rows, n_cols = 0.0, 0, 0
+    for c in catalog:
+        (got, gres), (want, wres) = card[c.name], cpu[c.name]
+        require(gres._map == wres._map, f"{c.name}: other rows allocated")
+        g = got.values.cpu()
+        require(torch.allclose(g, want.values, rtol=FOLD_RTOL, atol=0), f"{c.name}: beyond rtol {FOLD_RTOL} of the CPU")
+        require(torch.equal(got.last_ts.cpu(), want.last_ts), f"{c.name}: last_ts differs from the CPU's")
+        rel = (g - want.values).abs() / want.values.abs().clamp_min(1e-30)
+        worst = max(worst, float(rel.max()))
+        n_rows += len(gres._map)
+        n_cols += c.n_outputs
+    print(f"edge: aggregation catalog, {len(catalog)} configs ({n_cols} columns), {AGG_EVENTS} seeded events folded "
+          f"through apply_events into {n_rows} rows: card within rel {worst:.3g} of the CPU (rtol {FOLD_RTOL}), "
+          f"last_ts exact, the same rows; host clock of the fold over every config: card {1e3 * secs['card']:.1f} ms, "
+          f"CPU {1e3 * secs['cpu']:.1f} ms")
 
 
 # the exact retrieval tier as bench.py serves it (bench.py:616-694): the turbo
@@ -4585,7 +5047,9 @@ def main() -> int:
     by_path["exact_tier"], tier_scans = phase_exact_tier(world, (sann_ids, sann_scores), sann_recall, fy)
     by_path["live"], live_times = phase_live_updates(dev, world, fy)
     phase_new_path_times(tier_scans, live_times)
-    by_path["home_pipeline"] = phase_home_pipeline(dev, fy)
+    by_path["home_pipeline"], home = phase_home_pipeline(dev, fy)
+    by_path["edge"] = phase_edge(dev, fy, home)
+    del home
     by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
     emb = phase_apart("--embedding-training", "embedding_training")
     by_path["embedding_training"] = emb["launches"]

@@ -146,7 +146,10 @@ def test_port_imports_no_jax():
         "       'mixers.home_mixer', 'mixers.batched_foryou', 'pipeline.component',\n"
         "       'pipeline.recommendation', 'pipeline.component_library', 'pipeline.mixer', 'pipeline.urt',\n"
         "       'models.phoenix', 'mixers.feature_hydrators', 'mixers.phoenix_scorer', 'mixers.phoenix_loop',\n"
-        "       'mixers.home_products'}\n"
+        "       'mixers.home_products', 'features.aggregation_configs', 'features.prediction_catalog',\n"
+        "       'pipeline.visibility_conditions', 'pipeline.visibility', 'pipeline.visibility_rules_breadth',\n"
+        "       'pipeline.visibility_rules', 'serving.warmup', 'serving.native_front', 'serving.segdense',\n"
+        "       'serving.product_front', 'serving.server'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'the_algorithm_tpu.')))\n"
         "assert not bad, bad\n"

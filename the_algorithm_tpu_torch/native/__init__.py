@@ -1,15 +1,17 @@
 """ctypes bindings for the native host data plane (libtpurecsys).
 
-A copy of the JAX package's ``native/__init__.py`` for the port's copy of
+A copy of the JAX package's ``native/__init__.py`` for the port's copies of
 ``src/tpurecsys.cc`` (the TRec block codec, densifiers, the hashing
-discretizer, murmur3 and the multiplicative hash), with the same Python
-functions. The JAX package's ``hnsw.cc`` and ``serving_core.cc`` wait for
-the ports of ``ann_lib`` and ``native_front``.
+discretizer, murmur3 and the multiplicative hash) and
+``src/serving_core.cc`` (the ``sc_*`` socket front and batcher that
+``serving/native_front.py`` drives), with the same Python functions. The
+JAX package's ``hnsw.cc`` waits for the port of ``ann_lib``.
 
-The library is built with ``g++ -O3 -std=c++17`` at first use into
-``build/native/`` under the repository root (gitignored), named by a hash of
-the source and flags, never into the package directory; a failed build
-raises. Nothing here runs at import time.
+The library is built from both sources with ``g++ -O3 -std=c++17
+-pthread`` at first use into ``build/native/`` under the repository root
+(gitignored), named by a hash of the flags and of every source, never into
+the package directory; a failed build raises. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -23,11 +25,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src", "tpurecsys.cc")
+_SRCS = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)), "src", name)
+              for name in ("tpurecsys.cc", "serving_core.cc"))
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "build", "native"
 )
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -35,19 +38,21 @@ _lib: Optional[ctypes.CDLL] = None
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
+    for src in _SRCS:  # every source: an edit to any one names a new library
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"libtpurecsys_{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
-    """Compile the library unless one of the same source exists."""
+    """Compile the library unless one of the same sources exists."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", *CXX_FLAGS, "-o", tmp, _SRC]
+    cmd = ["g++", *CXX_FLAGS, "-o", tmp, *_SRCS]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
@@ -67,7 +72,8 @@ def lib() -> ctypes.CDLL:
 
 
 def _declare(L: ctypes.CDLL) -> None:
-    """Every entry point's C signature (``src/tpurecsys.cc``)."""
+    """Every entry point's C signature (``src/tpurecsys.cc``,
+    ``src/serving_core.cc``)."""
     u8p, u32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint32)
     i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
     u64p, f32p = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_float)
@@ -83,6 +89,13 @@ def _declare(L: ctypes.CDLL) -> None:
         "tpurecsys_densify": (ctypes.c_int, [u8p, u64, i64p, u32, f32p, u8p]),
         "tpurecsys_densify_labels": (ctypes.c_int, [u8p, u64, i64p, u32, f32p, u8p]),
         "tpurecsys_hash_discretize": (ctypes.c_int, [u8p, u64, i64p, u32, f32p, u32, u32, u32, i32p, f32p, u8p]),
+        # the serving core (navi-equivalent socket front + batcher)
+        "sc_start": (ctypes.c_void_p, [ctypes.c_int, u32, u32, u32, ctypes.c_int64]),
+        "sc_port": (ctypes.c_int, [ctypes.c_void_p]),
+        "sc_next_batch": (ctypes.c_int, [ctypes.c_void_p, f32p, i64p, ctypes.c_int64]),
+        "sc_complete": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int64, f32p]),
+        "sc_stats": (None, [ctypes.c_void_p, u64p]),
+        "sc_stop": (None, [ctypes.c_void_p]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(L, name)
