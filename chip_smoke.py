@@ -114,13 +114,16 @@ Phases, each printing its result on its own line:
     ``DeviceHydrationScorer.assemble_features`` family by family. Run B:
     the bf16 MaskNet, Phoenix at ``PhoenixConfig()``'s full width (bf16) with
     each user's 400-event history and its loop (store, rescoring hydrator,
-    reranker, side effect), inside ``build_for_you_mixer`` with a
-    who-to-follow stand-in and two ads, registered beside the Following
-    product, each timeline marshalled to URT, the users served twice: no
-    failure at any level, every served tweet with MaskNet's heads and
-    Phoenix's features, a who-to-follow module and ads in each timeline.
-    Launches a request held exactly in both runs (1 run_collapse + 4 and
-    + 5 row_gather); bf16 against f32 on the card on the requests' own model
+    reranker, side effect), inside ``build_for_you_mixer`` with the FRS
+    world's HOME_TIMELINE flow as its who-to-follow module
+    (``data/frs_world.py``, built before this phase) and two ads,
+    registered beside the Following product, each timeline marshalled to
+    URT, the users served twice: no failure at any level, every served
+    tweet with MaskNet's heads and Phoenix's features, a who-to-follow
+    module holding the flow's own first five for its user, and ads in each
+    timeline.
+    Launches a request held exactly in both runs (1 run_collapse + 4
+    row_gather; 6 + 13 with the flow's sources); bf16 against f32 on the card on the requests' own model
     inputs; the f32 product on the card against the port on the CPU (2
     users, both passes: ids but near-ties, every URT entry, scores rtol
     1e-5); the host-clock split a request (sources, hydration, MaskNet,
@@ -149,6 +152,31 @@ Phases, each printing its result on its own line:
     buckets 1, 8, 64, 256, and a wrong-width spec failing closed; the
     aggregation catalog's 18 stores folded on the card and on the CPU
     (4,096 seeded events, rtol 1e-6, timestamps exact);
+13b. products, after edge in the main process, over the For You, candidate
+    and SANN worlds and the FRS world (16,384 users following 48 of 4,096
+    authors, the follower adjacency, the sims graph built on the card, a UUG
+    and a RealGraph table): the six FRS device sources called directly for
+    32 users (launches as ``frs_world.SOURCE_LAUNCHES``, card against the
+    port on the CPU, SALSA and triangular closure against float64 oracles
+    for 4), the four display-location flows (non-empty, no followed,
+    blocked or self id, launches as derived), the sims graph card against
+    CPU; the T&S recipe (``train_kfold`` at ``RecipeConfig()`` over 4,096
+    texts with a planted toxic band: 1 row_gather + 1 run_collapse_rows a
+    step, JAX's AUC bounds, the first step's gradients against the CPU);
+    the T&S text model on 256 texts (one empty) and the media model on 64
+    224 x 224 images against the CPU; 64 push targets through
+    ``PushPipeline`` (the earlybird and UTEG adaptors over the For You
+    sources, each candidate's hydration row, the light ranker and ClemNet,
+    the health gate over the trained text model, NTab and fatigue: every
+    target a winner, none again 60 s later; rankers and gate against the
+    CPU); both timeline-ranker forms for 16 users and TSPS for 256 SANN
+    tweets against 1,024 topics against the CPU; 4,096 raw events through
+    the UUA adapters, staged enrichment and the recos-injector into UTEG and
+    RealGraph (a planted fav burst first of ``uteg.recommend``, 1 + 1; an
+    injected follow among ``top_edges``); then the kernels at the new
+    shapes (SALSA's [1, 1,048,576] collapse and 16,384 x 256 B second hop,
+    the sims expansion's [1, 266,240] collapse, the T&S embedding's 8,192 x
+    512 B gather and its gradient into [32,768, 128]);
 14. tweet_mixer, in a child process after the main process's last profiler
     session (``chip_smoke.py --tweet-mixer`` runs it alone): tweet-mixer's
     Home product (20 pipelines) at bench.py's sizes
@@ -234,7 +262,8 @@ Phases, each printing its result on its own line:
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
-updates, the per-request For You product, the serving edge, embedding
+updates, the per-request For You product, the serving edge, the products
+phase's FRS, push, trust & safety, timeline ranker and actions, embedding
 training, the mesh layer's serving and training halves),
 error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -265,12 +294,17 @@ from the_algorithm_tpu_torch import _build
 from the_algorithm_tpu_torch.core import mesh as meshlib
 from the_algorithm_tpu_torch.core.config import Params, param_scope
 from the_algorithm_tpu_torch.core.decider import Decider
-from the_algorithm_tpu_torch.data import foryou_world, sann_world, tweet_mixer_world
+from the_algorithm_tpu_torch.data import foryou_world, frs_world, sann_world, tweet_mixer_world
 from the_algorithm_tpu_torch.features import aggregation_configs as ac
 from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.core.metrics import StatsReceiver
 from the_algorithm_tpu_torch.mixers import batched_foryou as bf
 from the_algorithm_tpu_torch.mixers import feature_hydrators as fh
+from the_algorithm_tpu_torch.mixers import frs_catalog as fc
+from the_algorithm_tpu_torch.mixers import push_candidates as pc
+from the_algorithm_tpu_torch.mixers import pushservice as pushsvc
+from the_algorithm_tpu_torch.mixers import timeline_ranker as tlr
+from the_algorithm_tpu_torch.mixers import topic_social_proof as tsps
 from the_algorithm_tpu_torch.mixers import home_mixer as hm
 from the_algorithm_tpu_torch.mixers import home_products as hp
 from the_algorithm_tpu_torch.mixers import phoenix_loop as pl
@@ -285,7 +319,9 @@ from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
 from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
 from the_algorithm_tpu_torch.mixers.home_products import EXACT_RETRIEVAL_TIER
 from the_algorithm_tpu_torch.graph import realgraph
-from the_algorithm_tpu_torch.models import masknet, phoenix, twhin, two_tower, wals
+from the_algorithm_tpu_torch.models import masknet, phoenix, push_rankers, twhin, two_tower, wals
+from the_algorithm_tpu_torch.models import trust_safety as ts
+from the_algorithm_tpu_torch.models import trust_safety_train as tst
 from the_algorithm_tpu_torch.ops import gather, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
@@ -294,6 +330,11 @@ from the_algorithm_tpu_torch.pipeline.component import (Candidate, CandidatePipe
                                                         QueryFeatureHydrator, Selector)
 from the_algorithm_tpu_torch.pipeline.mixer import EntryKind
 from the_algorithm_tpu_torch.search import earlybird
+from the_algorithm_tpu_torch.search import root as search_root
+from the_algorithm_tpu_torch.actions import enricher as en
+from the_algorithm_tpu_torch.actions import recos_injector as ri
+from the_algorithm_tpu_torch.actions import uua_adapters as ua
+from the_algorithm_tpu_torch.simclusters import sims_graph
 from the_algorithm_tpu_torch.serving import segdense as sd
 from the_algorithm_tpu_torch.serving import warmup as wu
 from the_algorithm_tpu_torch.serving.batcher import BatcherConfig, RequestBatcher
@@ -1475,7 +1516,9 @@ HP_SEED = 13
 # author, tweet: three 16-byte-row tables each, one launch each); run B adds
 # Phoenix's author_emb read (history and candidates in one launch)
 HP_LAUNCHES_A = {"run_collapse": 1, "row_gather": 4}
-HP_LAUNCHES_B = {"run_collapse": 1, "row_gather": 5}
+HP_WTF = frs_world.flow_launches(fc.DisplayLocation.HOME_TIMELINE)  # the who-to-follow flow's sources: 5 + 8
+HP_LAUNCHES_B = {"run_collapse": 1 + HP_WTF["run_collapse"], "row_gather": 5 + HP_WTF["row_gather"]}
+HP_WTF_ITEMS = 5  # the For You mixer's cap on a who-to-follow module (DropMaxModuleItemCandidates(5))
 # run A against the batched engine: the JAX test's bounds
 # (tests/test_batched_foryou.py:147-157): each shared id's score within 1e-5,
 # ranks apart only among scores within 2e-6
@@ -1641,17 +1684,6 @@ class PhoenixScored(ps.PhoenixScorer):
         super().score(query, candidates, params)
 
 
-class WhoToFollowStandIn:
-    """The who-to-follow flow: any object with ``.run(request)``
-    (``mixers/follow_recommendations.RecommendationFlow`` is ported later;
-    examples/full_stack_demo.py:222-231 builds such a flow)."""
-
-    def run(self, request):
-        u = int(request.user_id)
-        return [Candidate(id=(u * 7 + i) % FY_WORLD["num_users"], score=1.0 - 0.1 * i,
-                          features={"author_follows_viewer": 1}) for i in range(4)]
-
-
 def recording(fn, sink, limit):
     """``fn``, keeping its first ``limit`` calls' arguments in ``sink``."""
     def call(*args):
@@ -1688,20 +1720,28 @@ def to_cpu(x):
 
 
 def home_queries(fy):
-    """HP_USERS For You queries, each with HP_SEEN of its SANN ids as seen."""
+    """HP_USERS For You queries, each with HP_SEEN of its SANN ids as seen,
+    and the follow and block sets the who-to-follow flow reads (the FRS
+    world's request for that user)."""
     sann = fy["sources"][0]
     out = []
     for u in range(HP_BASE, HP_BASE + HP_USERS):
         q = ForYouQuery(user_id=u, followed_authors=fy["follows"][u % len(fy["follows"])], max_results=FY_TOP_K,
                         now=foryou_world.NOW)
         q.seen_tweet_ids = frozenset(sann.get_batch([q], None)[0].ids[:HP_SEEN].tolist())
+        r = fy["frs"].request(u)
+        q.followed_set, q.blocked_set = r.followed_set, r.blocked_set
         out.append(q)
     return out
 
 
 def fresh(q):
-    """A copy of query ``q`` with empty features (a request's own store)."""
-    return dataclasses.replace(q, features={})
+    """A copy of query ``q`` with empty features (a request's own store),
+    keeping the attributes set on it beyond its fields."""
+    out = dataclasses.replace(q, features={})
+    names = {f.name for f in dataclasses.fields(q)}
+    out.__dict__.update({k: v for k, v in vars(q).items() if k not in names})
+    return out
 
 
 def home_pipeline(world, sources, predict, clock, phoenix_predict=None, store=None, device=None):
@@ -1728,12 +1768,18 @@ def home_pipeline(world, sources, predict, clock, phoenix_predict=None, store=No
     return pipe, phx
 
 
-def for_you_product(pipe, stats):
+def wtf_flow(frs):
+    """The FRS world's HOME_TIMELINE flow: the who-to-follow module's."""
+    return frs.catalog().flow(fc.DisplayLocation.HOME_TIMELINE)
+
+
+def for_you_product(pipe, stats, frs):
     """The For You mixer over ``pipe`` (kept as a :class:`CheckedPipeline`)
-    with the who-to-follow stand-in and two ads."""
+    with the FRS world's HOME_TIMELINE flow as its who-to-follow module and
+    two ads."""
     checked = CheckedPipeline(pipe)
     ads = [Candidate(id=i, features={"advertiser_id": a}) for i, a in HP_ADS]
-    return hp.build_for_you_mixer(scored_tweets_pipeline=checked, wtf_flow=WhoToFollowStandIn(), ads=ads,
+    return hp.build_for_you_mixer(scored_tweets_pipeline=checked, wtf_flow=wtf_flow(frs), ads=ads,
                                   stats=stats), checked
 
 
@@ -1752,10 +1798,12 @@ def serve_product(mixer, clock, queries, passes):
     return out
 
 
-def product_checks(served, checked, stats, phx, what):
+def product_checks(served, checked, stats, phx, what, frs=None, queries=()):
     """Run B's checks on each served request: no failure at any level, every
     served tweet with MaskNet's 15 heads and (where Phoenix scored it) its
-    head features, a who-to-follow module and ads in the timeline."""
+    head features, a who-to-follow module and ads in the timeline; with
+    ``frs``, each module's items the HOME_TIMELINE flow's own answer for
+    that user (``queries``, in serving order), cut to HP_WTF_ITEMS."""
     failed = {k: v for k, v in stats.counters().items() if "failed" in k}
     require(not failed, f"{what}: the mixer failed open: {failed}")
     for r in checked.results:
@@ -1774,6 +1822,14 @@ def product_checks(served, checked, stats, phx, what):
         require(any(e["entryId"].startswith("module-who_to_follow-") for e in entries),
                 f"{what}: no who-to-follow module")
         require(sum(e["entryId"].startswith("promoted-tweet-") for e in entries) >= 1, f"{what}: no ad")
+    if frs is not None:
+        flow = wtf_flow(frs)
+        for (tl, _), q in zip(served, list(queries) * (len(served) // max(len(queries), 1))):
+            items = [[c.id for c in e.module.items] for e in tl.entries if e.kind == EntryKind.MODULE
+                     and e.module.kind == "who_to_follow"]
+            direct = [c.id for c in flow.run(fresh(q))][:HP_WTF_ITEMS]
+            require(items == [direct], f"{what}: user {q.user_id}'s who-to-follow module {items}, the flow's "
+                                       f"own answer {direct}")
 
 
 def scoreless(doc):
@@ -1811,7 +1867,16 @@ def same_timelines(got, want, what):
             require(a == b or (a.startswith("tweet-") and b.startswith("tweet-")),
                     f"{what}: entry {i} is {a} here and {b} there")
         for eid in g.keys() & w.keys():
-            if not eid.startswith("cursor-"):  # a cursor is the top or last tweet id, which near-ties may move
+            if eid.startswith("module-who_to_follow-"):  # near-tied recommendations may trade places
+                gi, wi = g[eid]["content"]["module"]["items"], w[eid]["content"]["module"]["items"]
+                for a, b in zip(gi, wi):
+                    sa, sb = g_s.get(a["id"], 0.0), w_s.get(b["id"], 0.0)
+                    require(a == b or abs(sa - sb) <= 2 * (FY_ATOL + FY_RTOL * abs(sb)),
+                            f"{what}: module {eid} item {a['id']} against {b['id']}, not a near-tie")
+                require(len(gi) == len(wi) and {k: v for k, v in g[eid]["content"]["module"].items() if k != "items"}
+                        == {k: v for k, v in w[eid]["content"]["module"].items() if k != "items"},
+                        f"{what}: module {eid} differs")
+            elif not eid.startswith("cursor-"):  # a cursor is the top or last tweet id, which near-ties may move
                 require(g[eid] == w[eid], f"{what}: entry {eid} differs")
         for t in g_s.keys() & w_s.keys():
             require(abs(g_s[t] - w_s[t]) <= FY_ATOL + FY_RTOL * abs(w_s[t]), f"{what}: tweet {t} scored apart")
@@ -1920,7 +1985,7 @@ def phase_home_pipeline(dev, fy):
                                   recording(masknet.predict_fn(fy["m16"]), head_inputs, 2), clock_b,
                                   recording(phoenix.scorer_predict_fn(px16), phx_inputs, 2), pl.PhoenixScoreStore(),
                                   device=dev)
-    mixer, checked = for_you_product(pipe_b, stats_b)
+    mixer, checked = for_you_product(pipe_b, stats_b, fy["frs"])
     registry = hp.HomeProductPipelineRegistry()
     registry.register("for_you", mixer)
     registry.register("following", hp.build_following_pipeline(index=fy["index"], stats=stats_b))
@@ -1934,7 +1999,7 @@ def phase_home_pipeline(dev, fy):
                   "row_gather": _build.launches(gather.row_gather)}
     want_b = {k: 2 * HP_USERS * v for k, v in HP_LAUNCHES_B.items()}
     require(launches_b == want_b, f"run B launches {launches_b}, want {want_b} ({HP_LAUNCHES_B} a request)")
-    product_checks(served_b, checked, stats_b, phx_b, "run B")
+    product_checks(served_b, checked, stats_b, phx_b, "run B", fy["frs"], queries)
     reranked = sum(bool(e.candidate.features.get("phoenix_reranked")) for tl, _ in served_b[HP_USERS:]
                    for e in tl.entries if e.kind == EntryKind.TWEET)
     require(reranked > 0, "run B's second pass reranked nothing from the Phoenix store")
@@ -1942,8 +2007,10 @@ def phase_home_pipeline(dev, fy):
         user_id=queries[0].user_id, followed_authors=queries[0].followed_authors, now=foryou_world.NOW)))
     require(len(following.entries()) > 0, "the Following product served nothing")
     print(f"home_pipeline: run B, {2 * HP_USERS} requests through build_for_you_mixer and URT: launches {launches_b} "
-          f"({HP_LAUNCHES_B} a request, as derived); no failure in the scored pipeline or the mixer; every served "
-          f"tweet with MaskNet's 15 heads and Phoenix's features; each timeline a who-to-follow module and ads; the "
+          f"({HP_LAUNCHES_B} a request, as derived: the who-to-follow flow's sources {HP_WTF}); no failure in the "
+          f"scored pipeline or the mixer; every served tweet with MaskNet's 15 heads and Phoenix's features; each "
+          f"timeline a who-to-follow module holding the HOME_TIMELINE flow's own first {HP_WTF_ITEMS} for its user, "
+          f"and ads; the "
           f"second pass reranked {reranked} served tweets from the loop's store; Following served "
           f"{len(following.entries())} entries from the same registry")
 
@@ -1977,19 +2044,21 @@ def phase_home_pipeline(dev, fy):
     px_cpu = phoenix.PhoenixModel(px32.config, device="cpu")
     px_cpu.load_state_dict(px32.state_dict())
     answers = {}
-    for where, w, mn, px, d in (("card", world, fy["ref"], px32, dev), ("cpu", cpu_world, ref_cpu, px_cpu, "cpu")):
+    frs_cpu = fy["frs"].to("cpu")
+    for where, w, mn, px, d, frs in (("card", world, fy["ref"], px32, dev, fy["frs"]),
+                                     ("cpu", cpu_world, ref_cpu, px_cpu, "cpu", frs_cpu)):
         replay = [ReplaySource(s.name, record) for s in sources]
         pipe, phx = home_pipeline(w, replay, masknet.predict_fn(mn), StepClock(), phoenix.scorer_predict_fn(px),
                                   pl.PhoenixScoreStore(), device=d)
         stats = StatsReceiver()
-        mx, chk = for_you_product(pipe, stats)
+        mx, chk = for_you_product(pipe, stats, frs)
         answers[where] = serve_product(mx, StepClock(), queries[:HP_CPU], 2)
         product_checks(answers[where], chk, stats, phx, f"the f32 product on the {where}")
     moved = same_timelines(answers["card"], answers["cpu"], "the f32 product, card against CPU")
     print(f"home_pipeline: the f32 product on the card against the port on the CPU, {HP_CPU} users x 2 passes: "
           f"tweets ranked alike ({moved} ranks hold another id, within near-ties), scores within rtol {FY_RTOL} / atol "
           f"{FY_ATOL}, every other URT entry equal")
-    del cpu_world, ref_cpu, px_cpu
+    del cpu_world, ref_cpu, px_cpu, frs_cpu
 
     # the host clock, the device's busy share, the new row_gather launches
     print(f"home_pipeline: host clock (not a benchmark; {card_line()}; taken after the main process's profiler "
@@ -2453,6 +2522,705 @@ def edge_aggregation(dev):
           f"through apply_events into {n_rows} rows: card within rel {worst:.3g} of the CPU (rtol {FOLD_RTOL}), "
           f"last_ts exact, the same rows; host clock of the fold over every config: card {1e3 * secs['card']:.1f} ms, "
           f"CPU {1e3 * secs['cpu']:.1f} ms")
+
+
+# the other products (products): follow recommendations, push notifications
+# with their rankers and the T&S gate, the T&S classifiers and their k-fold
+# recipe, the timeline ranker, topic social proof and the action feed, over
+# the For You, candidate and SANN worlds the earlier phases built
+PR_BASE = 1000  # the users the FRS sources are called for
+PR_USERS = 32
+PR_ORACLE = 4  # users whose SALSA and triangular lists are held against float64 numpy
+PR_RTOL, PR_ATOL = 1e-5, 1e-6  # card against CPU: f32 sums in another order
+SIMS_RTOL = 1e-6
+PR_TARGETS = 64  # push targets
+# rows of each recorded ranker and gate call held against the CPU: the trained gate's CPU forward took ~0.1 s a
+# text on an H100 machine's 8-core host (2 x 128 texts 25.8 s)
+PR_CPU_ROWS = 32
+PR_TEXTS = 256  # T&S texts served (one empty)
+PR_IMAGES = 64  # 224 x 224 media
+PR_TRAIN_N = 4096  # the k-fold pool
+PR_TOXIC_BAND = 65  # tokens 1-64 are the planted toxic ones
+PR_GRAD_TOL = 1e-4  # first-step gradients, card against CPU: of each parameter's largest entry
+PR_AUC_OOF, PR_AUC_MEAN = 0.8, 0.7  # tests/test_trust_safety_train.py:76-77
+PR_TLR_USERS = 16
+PR_TWEETS, PR_TOPICS = 256, 1024  # TSPS
+PR_TOPIC_K = 20
+PR_EVENTS = 4096  # raw action events
+
+
+def counts():
+    """The three kernels' launch counters, read under their lock."""
+    torch.cuda.synchronize()
+    return {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+            "row_gather": _build.launches(gather.row_gather),
+            "run_collapse_rows": _build.launches(seg_scan.run_collapse_rows)}
+
+
+def zero_counts():
+    torch.cuda.synchronize()
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    seg_scan.run_collapse_rows.launches = 0
+
+
+def candidate_rows(lists, width):
+    """Candidate lists → (ids [R, width], scores [R, width]) numpy, PAD / 0 padded."""
+    ids = np.full((len(lists), width), PAD_ID, np.int64)
+    scores = np.zeros((len(lists), width), np.float32)
+    for r, cands in enumerate(lists):
+        ids[r, :len(cands)] = [c.id for c in cands]
+        scores[r, :len(cands)] = [c.score for c in cands]
+    return ids, scores
+
+
+def salsa_oracle(frs, followed, k):
+    """SALSA's walk in float64 dicts: (ids, masses) ranked by mass, then id."""
+    mass = {}
+    for s in followed:
+        fol = [int(u) for u in frs.followers[s] if u != PAD_ID]
+        for u in fol:
+            fw_ = [int(p) for p in frs.follows[u] if p != PAD_ID]
+            for p in fw_:
+                mass[p] = mass.get(p, 0.0) + 1.0 / len(fol) / len(fw_)
+    top = sorted(mass.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+    return [t for t, _ in top], [m for _, m in top]
+
+
+def triangular_oracle(frs, followed, k):
+    """Triangular closure's path counts (exact): ranked by count, then id."""
+    n = Counter(int(p) for s in followed for p in frs.follows[s] if p != PAD_ID)
+    top = sorted(n.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+    return [t for t, _ in top], [float(c) for _, c in top]
+
+
+def products_frs(dev, frs):
+    """The device sources called directly for PR_USERS users (card against
+    the port on the CPU, launches exact, SALSA and triangular against
+    float64 oracles), each display-location flow, the sims graph against
+    the CPU. Returns the direct calls' launches."""
+    t0 = time.perf_counter()
+    frs_cpu = frs.to("cpu")
+    card, cpu = frs.device_sources(), frs_cpu.device_sources()
+    reqs = [frs.request(u) for u in range(PR_BASE, PR_BASE + PR_USERS)]
+    zero_counts()
+    got = {}
+    for name, src in card.items():
+        got[name] = []
+        for r in reqs:
+            before = counts()
+            out = src(r)
+            after = counts()
+            rg, rc = frs_world.SOURCE_LAUNCHES[name]
+            require(after["row_gather"] - before["row_gather"] == rg and
+                    after["run_collapse"] - before["run_collapse"] == rc,
+                    f"FRS {name} launches {after}, {before} before; want {rg} + {rc} a call")
+            require(len(out) > 0, f"FRS {name}: no candidate for user {r.user_id}")
+            got[name].append(out)
+    launches = counts()
+    want = frs_world.expected_launches(list(card))
+    require(launches == {"run_collapse": PR_USERS * want["run_collapse"], "row_gather": PR_USERS * want["row_gather"],
+                         "run_collapse_rows": 0}, f"FRS launches {launches}")
+    t_card = time.perf_counter() - t0
+    t_cpu = time.perf_counter()
+    moved = {}
+    for name, src in cpu.items():
+        want_lists = [src(r) for r in reqs]
+        width = max(len(c) for c in got[name] + want_lists)
+        moved[name] = check_same_ranking(*candidate_rows(got[name], width), *candidate_rows(want_lists, width),
+                                         PR_RTOL, PR_ATOL, f"FRS {name}, card against CPU")
+    for r in reqs[:PR_ORACLE]:
+        followed = sorted(r.followed_set)
+        k = frs.shape.top_k
+        for name, oracle in (("salsa", salsa_oracle), ("triangular", triangular_oracle)):
+            w_ids, w_s = oracle(frs, followed, k)
+            out = card[name](r)
+            g_ids, g_s = candidate_rows([out], k)
+            if name == "triangular":  # whole-number counts: the list exactly, ties by id
+                require(g_ids[0].tolist()[:len(w_ids)] == w_ids and np.array_equal(g_s[0][:len(w_s)], w_s),
+                        f"triangular closure for user {r.user_id} differs from the oracle")
+            else:
+                wi, ws = candidate_rows([[Candidate(id=i, score=s) for i, s in zip(w_ids, w_s)]], k)
+                check_same_ranking(g_ids, g_s, wi, ws, PR_RTOL, 0.0, f"SALSA for user {r.user_id} against float64")
+    flows = {}
+    for loc in fc.DisplayLocation:
+        flow = frs.catalog().flow(loc)
+        per = frs_world.flow_launches(loc)
+        n_items = []
+        for r in reqs:
+            before = counts()
+            out = flow.run(r)
+            after = counts()
+            require({k: after[k] - before[k] for k in per} == per, f"flow {loc.name}: launches, want {per}")
+            ids = {c.id for c in out}
+            require(out and not ids & (r.followed_set | r.blocked_set | {r.user_id}),
+                    f"flow {loc.name} for user {r.user_id}: empty, or a followed, blocked or self id")
+            n_items.append(len(out))
+        flows[loc.name] = (min(n_items), max(n_items), per)
+    t_cpu, t_sims = time.perf_counter() - t_cpu, time.perf_counter()
+    # the sims graph on the card against the CPU
+    fm = sims_graph.follow_matrix_from_adjacency(frs_cpu.follow_adj, frs.shape.num_authors)
+    sims_cpu = sims_graph.symmetrize(sims_graph.cosine_similarity_graph(fm, top_k=frs.shape.sims_top_k))
+    del fm
+    sims_moved = check_same_ranking(frs.sims_ids, frs.sims_weights, sims_cpu.nbr_ids.numpy(),
+                                    sims_cpu.nbr_weights.numpy(), SIMS_RTOL, 1e-7, "the sims graph, card against CPU")
+    print(f"products: FRS over {frs.shape.num_users} users' follows ({frs.shape.follows} of "
+          f"{frs.shape.num_authors} authors each, followers padded to {frs.followers.shape[1]}): the six device "
+          f"sources called directly for {PR_USERS} users, none empty, launches {launches} "
+          f"({ {n: frs_world.SOURCE_LAUNCHES[n] for n in card} } (row_gather, run_collapse) a call, as derived); card "
+          f"against the port on the CPU, ranks apart among near-ties {moved}; SALSA within rtol {PR_RTOL} of float64 "
+          f"and triangular closure equal to its exact oracle for {PR_ORACLE} users; the four flows, each non-empty "
+          f"with no followed, blocked or self id, (min, max items, launches a request) {flows}; the sims graph "
+          f"[{frs.shape.num_authors}, {frs.shape.sims_top_k}] card against CPU within rtol {SIMS_RTOL}, "
+          f"{sims_moved} places among near-ties; host clock (not a benchmark): the direct calls {t_card:.2f} s, the "
+          f"CPU's, the oracles and the flows {t_cpu:.2f} s, the sims graph on the CPU {time.perf_counter() - t_sims:.2f} s")
+    return launches
+
+
+class ForTarget(CandidateSource):
+    """A For You batch source asked for a push target: its ForYouQuery, the
+    source's candidates with their columns as features (lifted)."""
+
+    def __init__(self, batch_source, lift, query_of):
+        self.inner = PerRequestSource(batch_source, lift)
+        self.query_of = query_of
+
+    @property
+    def name(self):
+        return self.inner.name
+
+    def get(self, target, params):
+        return self.inner.get(self.query_of(target.user_id), params)
+
+
+class Hydrated(CandidateSource):
+    """An adaptor whose candidates carry their row of the For You hydration
+    tier (``assemble_features``: the 6,823 columns MaskNet reads)."""
+
+    def __init__(self, adaptor, scorer, query_of):
+        self.adaptor, self.scorer, self.query_of = adaptor, scorer, query_of
+
+    @property
+    def name(self):
+        return self.adaptor.name
+
+    def get(self, target, params):
+        out = self.adaptor.get(target, params)
+        rows = self.scorer.assemble_features(self.query_of(target.user_id), out) if out else []
+        for c, row in zip(out, rows):
+            c.features["push_row"] = row
+        return out
+
+
+def tweet_texts(index_tokens, tweet_ids, cfg):
+    """Each tweet's doc tokens (the earlybird slot of an external id, else
+    the id itself) mod the vocabulary, PAD → 0, padded to max_len: (ids, mask)."""
+    slots = np.where(tweet_ids >= foryou_world.TWEET_ID_BASE, tweet_ids - foryou_world.TWEET_ID_BASE, tweet_ids)
+    toks = index_tokens[slots % index_tokens.shape[0]]
+    valid = toks != PAD_ID
+    ids = np.zeros((len(tweet_ids), cfg.max_len), np.int32)
+    mask = np.zeros((len(tweet_ids), cfg.max_len), np.float32)
+    ids[:, :toks.shape[1]] = np.where(valid, toks % cfg.vocab_size, 0)
+    mask[:, :toks.shape[1]] = valid
+    return ids, mask
+
+
+def safety_fn(model, index_tokens, record=None):
+    """The health predicate's score function over a text model: tweet ids
+    → {"toxicity", "nsfw", "abuse"} probabilities (tensors on the model's
+    device)."""
+    dev = next(model.parameters()).device
+
+    def scores(ids):
+        tok, mask = tweet_texts(index_tokens, np.asarray(ids), model.config)
+        if record is not None:
+            record.append((tok, mask))
+        with torch.no_grad():
+            p = torch.sigmoid(model(torch.from_numpy(tok).to(dev), torch.from_numpy(mask).to(dev)))
+        return {h: p[:, i] for i, h in enumerate(model.heads)}
+
+    return scores
+
+
+def products_push(dev, fy, cand, frs, ts_model):
+    """PR_TARGETS targets through PushPipeline: the EarlybirdFirstDegree and
+    ContentRecommenderMixer adaptors over the For You sources, each
+    candidate's hydration-tier row, the light ranker and ClemNet in f32,
+    the health predicate over the trained T&S model, NTab and fatigue.
+    Returns the counted run's launches."""
+    F = fs.total_width(fs.WIDE_SCHEMA)
+    scorer = fy["spread"].scorer
+    index_tokens = cand[0].eb_tokens
+
+    def query_of(u):
+        return ForYouQuery(user_id=u, followed_authors=[int(a) for a in frs.follows[u] if a != PAD_ID],
+                           max_results=FY_TOP_K, now=foryou_world.NOW)
+
+    adaptors = pc.build_push_adaptors(earlybird_source=ForTarget(fy["sources"][1], fy["lift"], query_of),
+                                      content_mixer_source=ForTarget(fy["sources"][2], fy["lift"], query_of))
+    targets = [pushsvc.PushTarget(user_id=u) for u in range(PR_BASE, PR_BASE + PR_TARGETS)]
+    derived = {"EarlybirdFirstDegree": {"run_collapse": 0, "row_gather": 0},
+               "ContentRecommenderMixer": {"run_collapse": 1, "row_gather": 1}}  # earlybird none; UTEG 1 + 1
+    sizes = {}
+    for a in adaptors:
+        before = counts()
+        out = a.get(targets[0], None)
+        after = counts()
+        require(out and all(c.features["crt"] in (pc.CRT.IN_NETWORK_TWEET, pc.CRT.OON_TWEET) for c in out),
+                f"push adaptor {a.name}: no candidate")
+        got = {k: after[k] - before[k] for k in derived[a.name]}
+        require(got == derived[a.name], f"push adaptor {a.name} launches {got}, want {derived[a.name]}")
+        sizes[a.name] = len(out)
+    before = counts()
+    scorer.assemble_features(query_of(PR_BASE), out)
+    after = counts()
+    assemble = {k: after[k] - before[k] for k in ("run_collapse", "row_gather")}
+
+    gen = torch.Generator(device=dev)
+    light = push_rankers.LightRankingMLP(F, hidden=(200, 100), device=dev, generator=gen.manual_seed(31)).eval()
+    heavy = push_rankers.ClemNet(F, num_heads=3, device=dev, generator=gen.manual_seed(32)).eval()
+    light_in, heavy_in, health_in = [], [], []
+    with torch.no_grad():
+        lp = recording(lambda x: light(torch.from_numpy(x).to(dev))[:, 0], light_in, 2)
+        hp_ = recording(lambda x: torch.sigmoid(heavy(torch.from_numpy(x).to(dev))), heavy_in, 2)
+    ntab = pc.NTabStore()
+    pipe = pushsvc.PushPipeline(
+        sources=[Hydrated(a, scorer, query_of) for a in adaptors], light_predict=lp, heavy_predict=hp_,
+        featurize=lambda t, c: c.features["push_row"], heavy_head_weights=np.asarray([1.0, 0.5, 0.25], np.float32),
+        candidate_predicates=[pc.not_already_sent(ntab)],
+        batch_candidate_predicates=[pc.health_model_predicate(safety_fn(ts_model, index_tokens, health_in))],
+        ntab=ntab, fatigue_config=pc.PushFatigueConfig())
+    zero_counts()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        winners = [pipe.run(t, foryou_world.NOW) for t in targets]
+    t_run = time.perf_counter() - t1
+    launches = counts()
+    per = {"run_collapse": 1 + 2 * assemble["run_collapse"], "row_gather": 1 + 2 * assemble["row_gather"] + 1}
+    want = {k: PR_TARGETS * v for k, v in per.items()} | {"run_collapse_rows": 0}
+    require(launches == want, f"push launches {launches}, want {want} ({per} a target: UTEG 1 + 1, two "
+                              f"hydrations {assemble} each, the health model's table read)")
+    for t, w in zip(targets, winners):
+        require(w is not None, f"push: no winner for target {t.user_id}")
+        sent = ntab.history(t.user_id)
+        require([n.tweet_id for n in sent] == [w.id] and sent[0].crt == w.features["crt"],
+                f"push: NTab holds {sent} for target {t.user_id}")
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        again = [pipe.run(t, foryou_world.NOW + 60) for t in targets]
+    t_again = time.perf_counter() - t2
+    require(all(a is None for a in again), "push: a second run inside the minimum interval sent something")
+    # card against CPU on the recorded inputs
+    light_cpu = push_rankers.LightRankingMLP(F, hidden=(200, 100), device="cpu").eval()
+    light_cpu.load_state_dict(light.state_dict())
+    heavy_cpu = push_rankers.ClemNet(F, num_heads=3, device="cpu").eval()
+    heavy_cpu.load_state_dict(heavy.state_dict())
+    ts_cpu = ts.TextSafetyModel(ts_model.config, device="cpu").eval()
+    ts_cpu.load_state_dict(ts_model.state_dict())
+    errs, cpu_secs = {}, {}
+    checks = (("light", light_in, lambda x: light(torch.from_numpy(x).to(dev)),
+               lambda x: light_cpu(torch.from_numpy(x))),
+              ("ClemNet", heavy_in, lambda x: torch.sigmoid(heavy(torch.from_numpy(x).to(dev))),
+               lambda x: torch.sigmoid(heavy_cpu(torch.from_numpy(x)))),
+              ("health", health_in,
+               lambda t, m: torch.sigmoid(ts_model(torch.from_numpy(t).to(dev), torch.from_numpy(m).to(dev))),
+               lambda t, m: torch.sigmoid(ts_cpu(torch.from_numpy(t), torch.from_numpy(m)))))
+    with torch.no_grad():
+        for name, sink, card_fn, cpu_fn in checks:
+            t4 = time.perf_counter()
+            for args in sink:  # what the pipeline reads: the light logit, the heavy and health probabilities
+                args = tuple(a[:PR_CPU_ROWS] for a in args)  # the first rows of each recorded call
+                g, w = card_fn(*args).cpu(), cpu_fn(*args)
+                errs[name] = max(errs.get(name, 0.0), float((g - w).abs().max()))
+                require(torch.allclose(g, w, rtol=PR_RTOL, atol=PR_ATOL),
+                        f"push {name}: card against CPU, max |diff| {errs[name]:.3g}")
+            cpu_secs[name] = round(time.perf_counter() - t4, 2)
+    crts = Counter(w.features["crt"].name for w in winners)
+    print(f"products: push, {PR_TARGETS} targets (adaptors called directly: {sizes} candidates for the first, "
+          f"launches as derived: {derived}); every target a winner ({dict(crts)}), each recorded in NTab; a second "
+          f"run {60} s later sent nothing (fatigue); launches {launches} ({per} a target, as derived); the light "
+          f"ranker (hidden (200, 100)), ClemNet (default blocks, 3 heads) over each candidate's {F} hydration "
+          f"columns and the health model, card against CPU on the first {PR_CPU_ROWS} rows of two recorded calls "
+          f"each within rtol {PR_RTOL} / atol "
+          f"{PR_ATOL} (max |diff| {errs}); host clock (not a benchmark) {1e3 * t_run / PR_TARGETS:.1f} ms a target, "
+          f"the second run {t_again:.1f} s, the CPU's checks {cpu_secs} s")
+    return launches
+
+
+def seeded_texts(n, seed):
+    """``n`` seeded texts of 1-60 made-up words, the first empty."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(5000)]
+    out = [""]
+    for _ in range(n - 1):
+        out.append(" ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(1, 61)))))
+    return out
+
+
+def products_ts_serving(dev):
+    """TextSafetyModel(TextEncoderConfig()) on PR_TEXTS texts (one empty)
+    and MediaSafetyModel() on PR_IMAGES 224 x 224 images, card against CPU;
+    one row_gather launch a text forward."""
+    cfg = ts.TextEncoderConfig()
+    gen = torch.Generator(device=dev)
+    model = ts.TextSafetyModel(cfg, device=dev, generator=gen.manual_seed(41)).eval()
+    toks, masks = zip(*(ts.tokenize_text(t, cfg) for t in seeded_texts(PR_TEXTS, 43)))
+    tok, mask = torch.stack(toks), torch.stack(masks)
+    require(float(mask[0].sum()) == 0.0, "the empty text has a token")
+    zero_counts()
+    with torch.no_grad():
+        got = model(tok.to(dev), mask.to(dev))
+    launches = counts()
+    require(launches == {"run_collapse": 0, "row_gather": 1, "run_collapse_rows": 0},
+            f"T&S text forward launches {launches}, want one row_gather")
+    cpu = ts.TextSafetyModel(cfg, device="cpu").eval()
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = cpu(tok, mask)
+    require(bool(torch.isfinite(got).all()) and torch.allclose(got.cpu(), want, rtol=PR_RTOL, atol=PR_ATOL),
+            "T&S text model: card against CPU")
+    text_err = float((got.cpu() - want).abs().max())
+    media = ts.MediaSafetyModel(device=dev, generator=gen.manual_seed(42)).eval()
+    images = torch.from_numpy(np.random.default_rng(44).random((PR_IMAGES, 224, 224, 3), np.float32))
+    media_cpu = ts.MediaSafetyModel(device="cpu").eval()
+    media_cpu.load_state_dict(media.state_dict())
+    with torch.no_grad():
+        mg, mw = media(images.to(dev)).cpu(), media_cpu(images)
+    require(mg.shape == (PR_IMAGES, 1) and torch.allclose(mg, mw, rtol=PR_RTOL, atol=PR_ATOL),
+            "T&S media model: card against CPU")
+    print(f"products: T&S serving, TextSafetyModel(TextEncoderConfig()) ({cfg.vocab_size} x {cfg.dim} tokens, "
+          f"L={cfg.max_len}, {cfg.layers} layers) on {PR_TEXTS} texts, one empty: one row_gather launch a forward, "
+          f"card against CPU within {text_err:.3g} (rtol {PR_RTOL}, atol {PR_ATOL}), all finite; MediaSafetyModel() "
+          f"on {PR_IMAGES} images 224 x 224 within {float((mg - mw).abs().max()):.3g}")
+    return launches
+
+
+def ts_pool(seed):
+    """The k-fold pool: PR_TRAIN_N token rows of 16-64 tokens from
+    [PR_TOXIC_BAND, vocab); in toxic rows (15%) each token is replaced by
+    one of the PR_TOXIC_BAND - 1 toxic tokens [1, PR_TOXIC_BAND) with
+    probability one half; nsfw and abuse labels correlated."""
+    cfg = ts.TextEncoderConfig()
+    rng = np.random.default_rng(seed)
+    n, L = PR_TRAIN_N, cfg.max_len
+    lengths = rng.integers(16, min(65, L + 1), n)
+    tokens = rng.integers(PR_TOXIC_BAND, cfg.vocab_size, (n, L)).astype(np.int32)
+    toxic = rng.random(n) < 0.15
+    plant = toxic[:, None] & (rng.random((n, L)) < 0.5)
+    tokens = np.where(plant, rng.integers(1, PR_TOXIC_BAND, (n, L)), tokens)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    tokens = np.where(mask > 0, tokens, 0).astype(np.int32)
+    nsfw = (toxic & (rng.random(n) < 0.6)) | (rng.random(n) < 0.02)
+    abuse = toxic & (rng.random(n) < 0.8)
+    return tokens, mask, np.stack([toxic, nsfw, abuse], 1).astype(np.float32)
+
+
+def products_ts_training(dev):
+    """train_kfold at RecipeConfig() on the card over the planted pool: JAX's
+    AUC bounds, launches exact a step, the first step's gradients against
+    the CPU. Returns the recipe's launches and fold 0's trained model."""
+    t0 = time.perf_counter()
+    cfg, rc = ts.TextEncoderConfig(), tst.RecipeConfig()
+    tokens, mask, labels = ts_pool(47)
+    template = ts.TextSafetyModel(cfg, device=dev)
+    splits = tst.kfold_indices(PR_TRAIN_N, rc.folds, rc.seed, stratify=labels[:, 0])
+    spe = [max(len(tr) // rc.batch_size, 1) for tr, _ in splits]
+    first = {}
+    steps = [0]
+
+    measured = Counter()
+
+    def on_step(fold, step, m):
+        c = counts()
+        want = {"run_collapse": 0, "run_collapse_rows": 1,
+                "row_gather": 1 + (step > 0 and step % spe[fold] == 0 and rc.rescore) + (step == 0 and fold > 0)}
+        require(c == want, f"T&S fold {fold} step {step}: launches {c}, want {want} (a step 1 + 1; a rescoring or "
+                           f"the previous fold's validation forward one gather before it)")
+        measured.update(c)
+        zero_counts()
+        steps[0] += 1
+        if fold == 0 and step == 0:
+            first["grads"] = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()}
+            first["params"] = {n: t.detach().cpu().clone() for n, t in m.state_dict().items()}
+
+    zero_counts()
+    res = tst.train_kfold(template, tokens, mask, labels, rc, on_step=on_step)
+    measured.update(counts())  # the last fold's validation forward
+    t_fit = time.perf_counter() - t0
+    total = steps[0]
+    require(total == rc.epochs * sum(spe), f"T&S: {total} steps")
+    oof, mean = res.oof_auc_per_head, res.mean_auc
+    require(oof[0] > PR_AUC_OOF and mean > PR_AUC_MEAN, f"T&S AUCs: out-of-fold {oof}, mean {mean:.3f}")
+    # the first step's gradients on the CPU, from the same params and batch
+    tr = splits[0][0]
+    perm = np.random.default_rng(rc.seed).permutation(len(tr))
+    (tok_b, msk_b, y_b), _ = tst._pad_batch([tokens[tr][perm], mask[tr][perm], labels[tr][perm]], 0,
+                                            rc.batch_size)
+    cpu = ts.TextSafetyModel(cfg, device="cpu")
+    cpu.load_state_dict(first["params"])
+    loss = tst.weighted_bce(cpu(torch.from_numpy(tok_b), torch.from_numpy(msk_b)), torch.from_numpy(y_b),
+                            torch.from_numpy(tst.class_pos_weights(labels[tr])), torch.ones(rc.batch_size))
+    loss.backward()
+    worst = 0.0
+    overall = max(float(p.grad.abs().max()) for p in cpu.parameters())
+    for n, p in cpu.named_parameters():
+        # an attention key bias's exact gradient is 0 (a softmax does not move when every logit of a query
+        # moves by q·b): both sides are rounding noise, held to the model's largest entry instead
+        scale = overall if n.endswith("attn.key_bias") else float(p.grad.abs().max())
+        d = float((first["grads"][n] - p.grad).abs().max())
+        require(d <= PR_GRAD_TOL * max(scale, 1e-30), f"T&S first-step gradient of {n}: {d:.3g} apart, largest "
+                                                      f"entry {scale:.3g}")
+        worst = max(worst, d / max(scale, 1e-30))
+    trained = ts.TextSafetyModel(cfg, device=dev).eval()
+    trained.load_state_dict(res.folds[0].params)
+    launches = dict(measured)
+    want = {"run_collapse": 0, "row_gather": total + rc.folds * (rc.epochs - 1) + rc.folds, "run_collapse_rows": total}
+    require(launches == want, f"T&S recipe launches {launches}, want {want}")
+    print(f"products: T&S recipe, train_kfold at RecipeConfig() ({rc.folds} folds, {rc.epochs} epochs, batch "
+          f"{rc.batch_size}, {rc.schedule}, rescoring) on {PR_TRAIN_N} texts, toxic tokens 1-{PR_TOXIC_BAND - 1} planted: "
+          f"{total} steps, each 1 row_gather + 1 run_collapse_rows (held every step); out-of-fold AUC "
+          f"{np.round(oof, 4).tolist()} (head 0 bound {PR_AUC_OOF}), mean fold AUC {mean:.4f} (bound "
+          f"{PR_AUC_MEAN}); first step's gradients on the card within {worst:.3g} of each parameter's largest "
+          f"entry on the CPU (the key biases, whose exact gradient is 0, of the model's largest; bound "
+          f"{PR_GRAD_TOL}); host clock {t_fit:.1f} s (not a benchmark)")
+    return launches, trained
+
+
+def products_tlr_tsps(dev, cand, frs, world):
+    """Both timeline-ranker forms for PR_TLR_USERS users over the candidate
+    world's earlybird index and UTEG graph, card against CPU, 1 + 1
+    launches a call; TSPS for PR_TWEETS SANN-world tweets against
+    PR_TOPICS seeded topics with every gate, card against CPU, the batch
+    equal to the single form for 4 tweets. Returns the TLR launches."""
+    t0 = time.perf_counter()
+    index, graph = cand[1], cand[2]
+    index_cpu, graph_cpu = to_cpu(index), to_cpu(graph)
+    split = foryou_world.NOW - 12 * 3600
+
+    def roots(ix):
+        return search_root.SuperRoot([search_root.Tier("realtime", ix, split, foryou_world.NOW),
+                               search_root.Tier("archive", ix, 0, split - 1)])
+
+    card_root, cpu_root = roots(index), roots(index_cpu)
+    cfg = tlr.TimelineRankerConfig()
+    zero_counts()
+    got, want = [], []
+    for u in range(PR_BASE, PR_BASE + PR_TLR_USERS):
+        follows = [int(a) for a in frs.follows[u] if a != PAD_ID]
+        kw = dict(followed_authors=follows, seed_weights=[1.0] * len(follows), min_ts=foryou_world.NOW - 86400,
+                  max_ts=foryou_world.NOW, config=cfg)
+        got += [tlr.get_ranked_timeline(index, graph, **kw), tlr.get_ranked_timeline_multitier(card_root, graph, **kw)]
+    launches = counts()
+    want_l = {"run_collapse": 2 * PR_TLR_USERS, "row_gather": 2 * PR_TLR_USERS, "run_collapse_rows": 0}
+    require(launches == want_l, f"timeline ranker launches {launches}, want {want_l}")
+    for u in range(PR_BASE, PR_BASE + PR_TLR_USERS):
+        follows = [int(a) for a in frs.follows[u] if a != PAD_ID]
+        kw = dict(followed_authors=follows, seed_weights=[1.0] * len(follows), min_ts=foryou_world.NOW - 86400,
+                  max_ts=foryou_world.NOW, config=cfg)
+        want += [tlr.get_ranked_timeline(index_cpu, graph_cpu, **kw),
+                 tlr.get_ranked_timeline_multitier(cpu_root, graph_cpu, **kw)]
+    moved = 0
+    for g, w in zip(got, want):
+        require((g.in_network_ids != PAD_ID).sum() > 0 and (g.oon_ids != PAD_ID).sum() > 0, "TLR: an empty stream")
+        for a, b, sa, sb in ((g.in_network_ids, w.in_network_ids, g.in_network_scores, w.in_network_scores),
+                             (g.oon_ids, w.oon_ids, g.oon_scores, w.oon_scores)):
+            fin = lambda x: np.where(np.isfinite(x), x, 0.0)[None]  # noqa: E731
+            moved += check_same_ranking(a[None], fin(sa), b[None], fin(sb), PR_RTOL, PR_ATOL, "TLR, card against CPU")
+    t_tlr = time.perf_counter() - t0
+
+    # TSPS over SANN-world tweets
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(53)
+    t_ids, t_sc = world[1][:PR_TWEETS], world[2][:PR_TWEETS]
+    pool = np.unique(t_ids[t_ids != PAD_ID])
+    topic_ids = np.stack([rng.choice(pool, PR_TOPIC_K, False) for _ in range(PR_TOPICS)]).astype(np.int32)
+    topic_sc = (rng.random((PR_TOPICS, PR_TOPIC_K)) + 0.1).astype(np.float32)
+    gates = dict(followed_topics=rng.choice(PR_TOPICS, 16, False).astype(np.int32),
+                 not_interested_topics=rng.choice(PR_TOPICS, 16, False).astype(np.int32),
+                 topic_allowed=rng.random(PR_TOPICS) < 0.9, quality_scores=rng.random(PR_TOPICS).astype(np.float32))
+    tcfg = tsps.TopicSocialProofConfig(min_relevance=0.01)
+
+    def run(d, n=PR_TWEETS):
+        tw = SparseEmbedding(torch.from_numpy(t_ids[:n]).to(d), torch.from_numpy(t_sc[:n]).to(d))
+        tp = SparseEmbedding(torch.from_numpy(topic_ids).to(d), torch.from_numpy(topic_sc).to(d))
+        g = {k: torch.from_numpy(v).to(d) for k, v in gates.items()}
+        return tw, tp, g, tsps.topic_social_proof_batch(tw, tp, min_quality=0.2, config=tcfg, **g)
+
+    *_, card_out = run(dev)
+    *_, cpu_out = run("cpu")
+    ids, rel, fol = (x.cpu().numpy() for x in card_out)
+    require((ids != PAD_ID).sum() > PR_TWEETS, "TSPS assigned almost no topics")
+    ts_moved = check_same_ranking(ids, rel, cpu_out[0].numpy(), cpu_out[1].numpy(), PR_RTOL, PR_ATOL,
+                                  "TSPS, card against CPU")
+    same = ids == cpu_out[0].numpy()
+    require(np.array_equal(fol[same], cpu_out[2].numpy()[same]), "TSPS followed masks differ from the CPU's")
+    tw, tp, g, _ = run(dev, 4)
+    nb = {k: v for k, v in g.items() if k in ("followed_topics", "not_interested_topics")}
+    batch = tsps.topic_social_proof_batch(tw, tp, config=tcfg, **nb)
+    for b in range(4):
+        one = tsps.topic_social_proof(SparseEmbedding(tw.ids[b], tw.scores[b]), tp, config=tcfg, **nb)
+        require(torch.equal(one[0], batch[0][b]) and torch.allclose(one[1], batch[1][b], rtol=1e-6, atol=0)
+                and torch.equal(one[2], batch[2][b]), f"TSPS tweet {b}: the batch form is not the single form")
+    print(f"products: timeline ranker, {PR_TLR_USERS} users x (get_ranked_timeline, the two-tier SuperRoot form) "
+          f"over the {cand[0].shape.eb_docs}-doc index and the UTEG graph: launches {launches} (1 + 1 a call, as "
+          f"derived), card against the port on the CPU, {moved} ranks apart among near-ties; TSPS, {PR_TWEETS} SANN "
+          f"tweets (K={t_ids.shape[1]}) against {PR_TOPICS} topics (K={PR_TOPIC_K}) with every gate, "
+          f"{int((ids != PAD_ID).sum())} assignments, card against CPU ({ts_moved} ranks among near-ties), the batch "
+          f"equal to the single form for 4 tweets; host clock TLR {t_tlr:.2f} s, TSPS {time.perf_counter() - t1:.2f} "
+          f"s (not a benchmark)")
+    return launches
+
+
+def products_actions(dev, cand, frs):
+    """PR_EVENTS raw events over every adapter, a planted fav burst and a
+    follow, through adapt → run_staged → route; the feeds folded into a copy
+    of the candidate world's UTEG graph and of the FRS world's RealGraph
+    table, card against CPU; the planted tweet retrieved by uteg.recommend
+    (1 + 1 launches) and the follow among top_edges. Returns the launches."""
+    t0 = time.perf_counter()
+    fyw, graph = cand[0], cand[2]
+    user = PR_BASE
+    seeds = fyw.seeds[user % fyw.shape.num_users]
+    planted = fyw.shape.tweet_space - 1
+    now_ms = foryou_world.NOW * 1000
+    events = frs_world.raw_events(59, PR_EVENTS, frs.shape)
+    events += [("tls_favs", {"fav_type": "fav", "user_id": int(s), "tweet_id": planted, "ts_ms": now_ms - 500})
+               for s in seeds]
+    row = set(frs.realgraph.neighbor_ids[user].cpu().tolist())
+    followee = next(a for a in range(frs.shape.num_authors) if a not in row and a != user)
+    events.append(("social_graph", {"op": "follow", "source_id": user, "target_id": followee, "ts_ms": now_ms - 400}))
+
+    def feed():
+        acts = [a for k, e in events for a in ua.adapt(k, e)]
+        res = en.run_staged(acts, frs_world.ENRICH_PLAN, frs_world.AuthorHydrator(frs.shape.num_authors,
+                                                                                  frs.shape.tweet_space))
+        return acts, res, ri.route([e.action for e in res.final])
+
+    acts, res, feeds = feed()
+    _, _, again = feed()
+    for name in ("uteg", "simclusters_favs", "realgraph"):
+        for k, v in getattr(feeds, name).items():
+            require(np.array_equal(v, getattr(again, name)[k]), f"actions: the {name} feed is not deterministic")
+    u = feeds.uteg
+    g_card = uteg.record_engagements(graph, u["user_ids"], u["tweet_ids"], u["types"], u["timestamps"])
+    g_cpu = uteg.record_engagements(to_cpu(graph), u["user_ids"], u["tweet_ids"], u["types"], u["timestamps"])
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(g_card, g_cpu)), "actions: UTEG folded apart on the card")
+    r = feeds.realgraph
+    args = (r["src"], r["dst"], r["interaction_type"], r["timestamps"])
+    t_card = realgraph.apply_interactions(frs.realgraph, *args)
+    t_cpu = realgraph.apply_interactions(frs.to("cpu").realgraph, *args)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(t_card, t_cpu)), "actions: RealGraph folded apart")
+    s = torch.from_numpy(seeds[None]).to(dev)
+    zero_counts()
+    ids, scores, proof = uteg.recommend(g_card, s, torch.ones(s.shape, device=dev), max_results=UTEG_RESULTS)
+    launches = counts()
+    require(launches == {"run_collapse": 1, "row_gather": 1, "run_collapse_rows": 0},
+            f"actions: recommend launches {launches}")
+    require(int(ids[0, 0]) == planted, f"actions: the planted tweet {planted} is not the top of {ids[0, :4].tolist()}")
+    cpu_ids, cpu_scores, _ = uteg.recommend(g_cpu, s.cpu(), torch.ones(s.shape), max_results=UTEG_RESULTS)
+    check_same_ranking(ids.cpu().numpy(), np.where(torch.isfinite(scores).cpu().numpy(), scores.cpu().numpy(), 0),
+                       cpu_ids.numpy(), np.where(torch.isfinite(cpu_scores).numpy(), cpu_scores.numpy(), 0),
+                       PR_RTOL, PR_ATOL, "actions: recommend, card against CPU")
+    top, _ = realgraph.top_edges(t_card, frs.rg_params, user, foryou_world.NOW, frs.shape.realgraph_degree)
+    require(followee in top.tolist(), f"actions: the injected follow {user} -> {followee} is not among top_edges")
+    print(f"products: actions, {len(events)} raw events over {len({k for k, _ in events})} adapters -> {len(acts)} "
+          f"actions -> {len(res.final)} enriched ({len(res.dead_letters)} dead letters, {res.partitioned_batches} "
+          f"partitioned batches) -> feeds UTEG {len(u['user_ids'])}, SimClusters favs "
+          f"{len(feeds.simclusters_favs['user_ids'])}, RealGraph {len(r['src'])} (the same on a second pass); folded "
+          f"on the card and on the CPU alike; user {user}'s {len(seeds)} seeds' injected favs put tweet {planted} "
+          f"first of uteg.recommend (proof {float(proof[0, 0]):.0f}; launches {launches}); the injected follow "
+          f"{user} -> {followee} among top_edges; host clock {time.perf_counter() - t0:.2f} s (not a benchmark)")
+    return launches
+
+
+def recorded(module, name, call):
+    """The arguments of every call of ``module.name`` while ``call()`` runs."""
+    real, seen = getattr(module, name), []
+
+    def rec(*args):
+        seen.append(args)
+        return real(*args)
+
+    rec.launches = 0
+    setattr(module, name, rec)
+    try:
+        call()
+    finally:
+        setattr(module, name, real)
+    torch.cuda.synchronize()
+    return seen
+
+
+def products_kernel_times(dev, frs):
+    """The kernels at the products' new shapes against their plain versions
+    (device time over warm calls, plain and kernel in one profiler session):
+    SALSA's collapse [1, 1,048,576] and its second-hop gather, the sims
+    expansion's collapse, the T&S embedding gather and its gradient."""
+    r = frs.request(PR_BASE)
+    card = frs.device_sources()
+    salsa_rc = recorded(retrieval, "run_collapse_sorted", lambda: card["salsa"](r))
+    salsa_rg = recorded(fc, "row_gather", lambda: card["salsa"](r))
+    exp_rc = recorded(retrieval, "run_collapse_sorted", lambda: card["sims_expansion"](r))
+    out = {}
+    e = salsa_rc[0]
+    out["salsa collapse"] = time_collapse(e, "SALSA's sorted walk entries", copy_yardstick=False)
+    out["sims expansion collapse"] = time_collapse(exp_rc[0], "the sims expansion's sorted entries",
+                                                   copy_yardstick=False)
+    ids, table = salsa_rg[1][0], salsa_rg[1][1]
+    out["salsa hop 2"] = time_gather(ids.reshape(-1).contiguous(), (table,),
+                                     f"SALSA's second hop: {ids.numel()} rows x {table.shape[1] * 4} B")
+    cfg, rc = ts.TextEncoderConfig(), tst.RecipeConfig()
+    model = ts.TextSafetyModel(cfg, device=dev)
+    tokens, mask, labels = ts_pool(61)
+    tok = torch.from_numpy(tokens[:rc.batch_size]).to(dev)
+    msk = torch.from_numpy(mask[:rc.batch_size]).to(dev)
+
+    def step():
+        model.zero_grad()
+        tst.weighted_bce(model(tok, msk), torch.from_numpy(labels[:rc.batch_size]).to(dev),
+                         torch.ones(3, device=dev), torch.ones(rc.batch_size, device=dev)).backward()
+
+    seen_rg = recorded(gather, "row_gather", step)  # the table read's forward
+    seen_rcr = recorded(gather, "run_collapse_rows", step)  # and its gradient
+    ids, table = seen_rg[0][0], seen_rg[0][1].detach()
+    out["T&S embedding"] = time_gather(ids.reshape(-1).contiguous(), (table,),
+                                       f"the T&S token embedding: {ids.numel()} ids x {table.shape[1] * 4} B")
+    sid, perm, dy, n = seen_rcr[0]
+    out["T&S embedding gradient"] = time_collapse_rows(sid, perm, dy.detach(), n,
+                                                       f"the T&S embedding gradient ({sid.numel()} ids into "
+                                                       f"[{n}, {dy.shape[1]}])")
+    return out
+
+
+def phase_products(dev, fy, cand, world):
+    """The other products on the card over the For You, candidate and SANN
+    worlds (``fy["frs"]`` the FRS world built before run B). Returns the
+    launches by path."""
+    t_phase = time.perf_counter()
+    frs = fy["frs"]
+    print(f"products: {card_line()}; FRS world {frs.shape.num_users} users, {frs.shape.num_authors} authors, sims "
+          f"top {frs.shape.sims_top_k}")
+    clock = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        clock[name] = time.perf_counter() - t0
+        return out
+
+    by_path = {"frs": step("FRS", products_frs, dev, frs)}
+    by_path["trust_safety"], trained = step("T&S recipe", products_ts_training, dev)
+    step("T&S serving", products_ts_serving, dev)
+    by_path["push"] = step("push", products_push, dev, fy, cand, frs, trained)
+    by_path["timeline_ranker"] = step("TLR and TSPS", products_tlr_tsps, dev, cand, frs, world)
+    by_path["actions"] = step("actions", products_actions, dev, cand, frs)
+    times = step("kernel times", products_kernel_times, dev, frs)
+    print("products: host clock by step (not a benchmark): " + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()))
+    print("products: new kernel shapes (device time; " + card_line() + "): " + "; ".join(
+        f"{k} {v['device_ms']:.4f} ms (plain {v['plain_device_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms)"
+        for k, v in times.items()))
+    print(f"products: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
 
 
 # the exact retrieval tier as bench.py serves it (bench.py:616-694): the turbo
@@ -5047,9 +5815,15 @@ def main() -> int:
     by_path["exact_tier"], tier_scans = phase_exact_tier(world, (sann_ids, sann_scores), sann_recall, fy)
     by_path["live"], live_times = phase_live_updates(dev, world, fy)
     phase_new_path_times(tier_scans, live_times)
+    t0 = time.perf_counter()
+    fy["frs"] = frs_world.build(device=dev)  # the who-to-follow flow's world (run B) and the products phase's
+    print(f"frs world: {fy['frs'].shape.num_users} users' follows, the follower adjacency "
+          f"{fy['frs'].followers.shape}, the sims graph, the UUG and RealGraph tables and the host tables built in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)")
     by_path["home_pipeline"], home = phase_home_pipeline(dev, fy)
     by_path["edge"] = phase_edge(dev, fy, home)
     del home
+    by_path.update(phase_products(dev, fy, cand_world, world))
     by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
     emb = phase_apart("--embedding-training", "embedding_training")
     by_path["embedding_training"] = emb["launches"]

@@ -149,7 +149,11 @@ def test_port_imports_no_jax():
         "       'mixers.home_products', 'features.aggregation_configs', 'features.prediction_catalog',\n"
         "       'pipeline.visibility_conditions', 'pipeline.visibility', 'pipeline.visibility_rules_breadth',\n"
         "       'pipeline.visibility_rules', 'serving.warmup', 'serving.native_front', 'serving.segdense',\n"
-        "       'serving.product_front', 'serving.server'}\n"
+        "       'serving.product_front', 'serving.server', 'simclusters.known_for', 'simclusters.sims_graph',\n"
+        "       'mixers.follow_recommendations', 'mixers.frs_catalog', 'mixers.timeline_ranker',\n"
+        "       'mixers.topic_social_proof', 'models.push_rankers', 'models.trust_safety', 'mixers.push_candidates',\n"
+        "       'mixers.pushservice', 'models.trust_safety_train', 'actions.uua_adapters', 'actions.enricher',\n"
+        "       'actions.recos_injector', 'data.frs_world'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'the_algorithm_tpu.')))\n"
         "assert not bad, bad\n"
