@@ -177,6 +177,30 @@ Phases, each printing its result on its own line:
     shapes (SALSA's [1, 1,048,576] collapse and 16,384 x 256 B second hop,
     the sims expansion's [1, 266,240] collapse, the T&S embedding's 8,192 x
     512 B gather and its gradient into [32,768, 128]);
+13c. write_path, after products: tweetypie's ``TweetWriteService`` wired
+    by ``ingester_fanout`` to an ``EarlybirdIngester`` at the For You
+    index's 262,144 docs: 4,096 posts (roots, reply chains to depth 4,
+    quotes, media), 64 edits, 64 deletes, 16 undeletes, 16 takedowns,
+    16,384 UUA actions, 32 suspended authors, the index after each step
+    equal column by column to the same events replayed through the port on
+    the CPU; the posts again as one batch (both rates on the host clock);
+    flush and load, a 256-post tail ingested while another thread serves
+    Following timelines (each held against the CPU on the index version it
+    read) and replayed onto the snapshot, ``roll_expired`` of half the docs,
+    feature updates at B = 4,096; the Following product with edit chains
+    and a reply-chain resolver (conversation modules, replace_entry
+    instructions, URT equal to the CPU's), the masked search, one R=32 For
+    You batch over the ingested index (1 + 16 launches, against the CPU),
+    and fault 10 (a post whose id passes int32: recorded, index unchanged);
+13d. offline_simclusters, after write_path, in a child process
+    (``chip_smoke.py --offline-simclusters`` runs it alone, the FRS world
+    built again from its seed): over a planted 16,384 x 4,096
+    follow graph (64 communities) the sims graph, KnownFor (C=256, 6
+    iterations: ids equal to the CPU's, recovery > 0.8), InterestedIn (top
+    50) and producer embeddings; tweepcred over the FRS follow graph (the
+    iteration count equal to the CPU's, the sum 1 within 1e-4); launches as
+    derived; the k = 4 collapse against its plain version on the kernel
+    tests' COLLAPSE_CASES, and the new collapse shapes timed;
 14. tweet_mixer, in a child process after the main process's last profiler
     session (``chip_smoke.py --tweet-mixer`` runs it alone): tweet-mixer's
     Home product (20 pipelines) at bench.py's sizes
@@ -334,7 +358,12 @@ from the_algorithm_tpu_torch.search import root as search_root
 from the_algorithm_tpu_torch.actions import enricher as en
 from the_algorithm_tpu_torch.actions import recos_injector as ri
 from the_algorithm_tpu_torch.actions import uua_adapters as ua
-from the_algorithm_tpu_torch.simclusters import sims_graph
+from the_algorithm_tpu_torch.simclusters import interested_in, known_for, producer_embeddings, sims_graph
+from the_algorithm_tpu_torch.graph import tweepcred
+from the_algorithm_tpu_torch.ops import segment
+from the_algorithm_tpu_torch.search import ingester as ing
+from the_algorithm_tpu_torch.search import persistence as pers
+from the_algorithm_tpu_torch.storage import tweetypie
 from the_algorithm_tpu_torch.serving import segdense as sd
 from the_algorithm_tpu_torch.serving import warmup as wu
 from the_algorithm_tpu_torch.serving.batcher import BatcherConfig, RequestBatcher
@@ -1498,7 +1527,8 @@ def phase_foryou(dev, sann, cand):
     # the live phase's freshness probe: the serving engine with small creation times
     probe = engine(served.scorer, lift=spread_lift(lift), max_age_s=10 ** 9)
     return launches, dict(served=served, sources=sources, lift=lift, queries=queries, probe=probe, world=world,
-                          spread=spread, ref=ref, m16=m16, follows=follows, index=index, front_rate=front_rate)
+                          spread=spread, ref=ref, m16=m16, follows=follows, index=index, front_rate=front_rate,
+                          host_select=host_select, make_scorer=scorer, tables=tables, cfg32=cfg32)
 
 
 # the per-request For You product (home_pipeline): the JAX package's product
@@ -2534,8 +2564,8 @@ PR_ORACLE = 4  # users whose SALSA and triangular lists are held against float64
 PR_RTOL, PR_ATOL = 1e-5, 1e-6  # card against CPU: f32 sums in another order
 SIMS_RTOL = 1e-6
 PR_TARGETS = 64  # push targets
-# rows of each recorded ranker and gate call held against the CPU: the trained gate's CPU forward took ~0.1 s a
-# text on an H100 machine's 8-core host (2 x 128 texts 25.8 s)
+# rows of each recorded ranker and gate call held against the CPU (the first two calls of each; the gate's check
+# once took every one of its 128 calls, 25.8 s at 128 rows on an H100 machine's host: 1.6 ms a text)
 PR_CPU_ROWS = 32
 PR_TEXTS = 256  # T&S texts served (one empty)
 PR_IMAGES = 64  # 224 x 224 media
@@ -2725,15 +2755,16 @@ def tweet_texts(index_tokens, tweet_ids, cfg):
     return ids, mask
 
 
-def safety_fn(model, index_tokens, record=None):
+def safety_fn(model, index_tokens, record=None, limit=0):
     """The health predicate's score function over a text model: tweet ids
     → {"toxicity", "nsfw", "abuse"} probabilities (tensors on the model's
-    device)."""
+    device), keeping its first ``limit`` calls' (tokens, mask) in
+    ``record``."""
     dev = next(model.parameters()).device
 
     def scores(ids):
         tok, mask = tweet_texts(index_tokens, np.asarray(ids), model.config)
-        if record is not None:
+        if record is not None and len(record) < limit:
             record.append((tok, mask))
         with torch.no_grad():
             p = torch.sigmoid(model(torch.from_numpy(tok).to(dev), torch.from_numpy(mask).to(dev)))
@@ -2788,7 +2819,7 @@ def products_push(dev, fy, cand, frs, ts_model):
         sources=[Hydrated(a, scorer, query_of) for a in adaptors], light_predict=lp, heavy_predict=hp_,
         featurize=lambda t, c: c.features["push_row"], heavy_head_weights=np.asarray([1.0, 0.5, 0.25], np.float32),
         candidate_predicates=[pc.not_already_sent(ntab)],
-        batch_candidate_predicates=[pc.health_model_predicate(safety_fn(ts_model, index_tokens, health_in))],
+        batch_candidate_predicates=[pc.health_model_predicate(safety_fn(ts_model, index_tokens, health_in, 2))],
         ntab=ntab, fatigue_config=pc.PushFatigueConfig())
     zero_counts()
     t1 = time.perf_counter()
@@ -2843,7 +2874,7 @@ def products_push(dev, fy, cand, frs, ts_model):
           f"columns and the health model, card against CPU on the first {PR_CPU_ROWS} rows of two recorded calls "
           f"each within rtol {PR_RTOL} / atol "
           f"{PR_ATOL} (max |diff| {errs}); host clock (not a benchmark) {1e3 * t_run / PR_TARGETS:.1f} ms a target, "
-          f"the second run {t_again:.1f} s, the CPU's checks {cpu_secs} s")
+          f"the second run {t_again:.1f} s, the CPU's checks {cpu_secs} s on {torch.get_num_threads()} CPU threads")
     return launches
 
 
@@ -3221,6 +3252,708 @@ def phase_products(dev, fy, cand, world):
         for k, v in times.items()))
     print(f"products: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return by_path
+
+
+# the write path: tweetypie's write service wired by ingester_fanout
+# to an earlybird ingester at the For You world's index capacity, every step
+# held column by column against the same events replayed through the port on
+# the CPU (documents built on the host alike, ingested there as micro-batches:
+# while a batch fits the ring, the ring makes the two indexes equal); then
+# persistence, and the served paths over the ingested index
+WP_CAPACITY = foryou_world.FULL.eb_docs  # 262,144 docs, the For You world's index
+WP_TOKENS = foryou_world.FULL.eb_tokens
+WP_POSTS, WP_EDITS, WP_DELETES, WP_UNDELETES, WP_TAKEDOWNS = 4096, 64, 64, 16, 16
+WP_ENGAGEMENTS = 16_384  # UUA actions
+WP_SUSPENDED = 32  # authors
+WP_T0 = 100_000  # creation times from here, 8 posts a second: ids (now << 12) | seq stay below 2**31
+WP_DEPTH = 4  # reply chains up to this depth
+WP_TAIL = 256  # posts ingested while the Following product serves, then replayed onto the flushed snapshot
+WP_CHUNK = 32  # the tail's posts between two served batches
+WP_UPDATES = 4096  # ids of the feature-update batches
+WP_FOLLOWING = 8  # Following timelines held against the CPU
+WP_R = 32  # the For You batch over the ingested index
+WP_CPU_R = 4  # its requests whose f32 scores are held against the CPU
+WP_LAUNCHES = {"run_collapse": 1, "row_gather": 16}  # that batch's (FY_LAUNCHES): the write path itself launches none
+WP_WORDS = ("hello", "timeline", "earlybird", "ranking", "write", "path", "tweet", "graph", "news", "sports")
+WP_LATE = foryou_world.NOW  # fault 10: a post at bench.py's clock gets an id past 2**31
+
+
+class RecordingIngester(ing.EarlybirdIngester):
+    """The ingester, recording every write call in order, so the same
+    events can be replayed through the port on the CPU."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.calls = []
+
+    def ingest_tweets(self, tweets, *, now=0):
+        self.calls.append(("ingest", list(tweets), now))
+        return super().ingest_tweets(tweets, now=now)
+
+    def delete_tweets(self, tweet_ids):
+        self.calls.append(("delete", list(tweet_ids)))
+        return super().delete_tweets(tweet_ids)
+
+    def apply_engagements(self, actions):
+        self.calls.append(("engage", list(actions)))
+        return super().apply_engagements(actions)
+
+
+def replay_on_cpu(cpu, calls):
+    """``calls`` through the port on the CPU: each ingest call's documents
+    built as the card's were (same tweets, same ``now``), consecutive ones
+    ingested as one micro-batch; consecutive deletes as one call."""
+    docs, dels = [], []
+
+    def flush():
+        if docs:
+            cpu.index = earlybird.ingest(cpu.index, *(torch.cat(c) for c in zip(*docs)))
+            cpu.log_offset += sum(d[0].shape[0] for d in docs)
+            docs.clear()
+        if dels:
+            cpu.delete_tweets(dels)
+            dels.clear()
+
+    for call in calls:
+        if call[0] == "ingest":
+            try:
+                ing.check_tweet_ids(t.tweet_id for t in call[1])
+            except ValueError:
+                continue  # refused on the card before anything was built
+            if dels:
+                flush()
+            docs.append(earlybird.build_documents(call[1], cpu.config, ui_language=cpu.ui_language,
+                                                  now=call[2])[:5])
+        elif call[0] == "delete":
+            if docs:
+                flush()
+            dels.extend(call[1])
+        else:
+            flush()
+            cpu.apply_engagements(call[1])
+    flush()
+    calls.clear()
+
+
+def same_index(card, cpu, what):
+    """Every column of the card's index equal to the CPU's (ints bit-equal;
+    features too: documents are built on the host and increments pre-summed
+    in one order)."""
+    for name in ("tokens", "author", "created_ts", "features", "tweet_ids"):
+        a, b = getattr(card, name).cpu(), getattr(cpu, name)
+        require(torch.equal(a, b), f"write path, {what}: the card's {name} column differs from the CPU's "
+                                   f"at {int((a != b).reshape(a.shape[0], -1).any(1).sum())} slots")
+    require(card.write_pos == cpu.write_pos, f"write path, {what}: write_pos {card.write_pos} against {cpu.write_pos}")
+
+
+def wp_text(rng):
+    words = [WP_WORDS[i] for i in rng.integers(0, len(WP_WORDS), int(rng.integers(3, 9)))]
+    if rng.random() < 0.3:
+        words.append(f"#{WP_WORDS[int(rng.integers(len(WP_WORDS)))]}")
+    if rng.random() < 0.2:
+        words.append(f"https://t.co/{int(rng.integers(1 << 20)):x}")
+    return " ".join(words)
+
+
+def wp_posts(svc, rng, n, t0, authors):
+    """``n`` posts, 8 a second from ``t0``: roots, replies (chains up to
+    WP_DEPTH), quotes and media. Returns the new tweets."""
+    depth, out = {}, []
+    live = [t for t in svc.store._tweets.values() if not t.deleted]
+    for i in range(n):
+        pool = live + out
+        kw = {}
+        r = rng.random()
+        if pool and r < 0.35:
+            parent = pool[int(rng.integers(len(pool)))]
+            if depth.get(parent.tweet_id, 0) < WP_DEPTH and not parent.deleted:
+                kw["reply_to"] = parent.tweet_id
+        elif pool and r < 0.45:
+            q = pool[int(rng.integers(len(pool)))]
+            if not q.deleted:
+                kw["quoted_tweet_id"] = q.tweet_id
+        if rng.random() < 0.2:
+            kw["media"] = (("img.jpg",), ("clip.mp4",), ("a.png", "b.m3u8"))[int(rng.integers(3))]
+        t = svc.post_tweet(int(authors[int(rng.integers(len(authors)))]), wp_text(rng), now=t0 + i // 8, **kw)
+        depth[t.tweet_id] = depth.get(kw.get("reply_to"), -1) + 1 if "reply_to" in kw else 0
+        out.append(t)
+    return out
+
+
+def conversation_chain(store):
+    """The Following product's conversation resolver: a candidate's reply
+    chain walked up the store's ``reply_to`` links, root first (as the JAX
+    test's stand-in, tests/test_home_products.py:150-159)."""
+    def chain(c):
+        out, t = [c], store._tweets.get(int(c.id))
+        while t is not None and t.reply_to is not None:
+            t = store._tweets.get(t.reply_to)
+            if t is None:
+                break
+            out.insert(0, Candidate(id=t.tweet_id, features={"author_id": t.author_id}))
+        return out
+    return chain
+
+
+def following_json(index, svc, q):
+    """The Following product over ``index`` (one version), marshalled."""
+    pipe = hp.build_following_pipeline(index=index, conversation_resolver=conversation_chain(svc.store),
+                                       edit_chains=svc.edits)
+    tl = pipe.run(copy.deepcopy(q))
+    return tl, urt.marshal_timeline(tl).to_json()
+
+
+def store_lift(lift, store, t0=0):
+    """``lift``, with an ingested tweet's author and creation time less
+    ``t0`` from the store (bench.py's metadata lift for every other id,
+    creation times below SPREAD_TS)."""
+    ids = np.fromiter(store._tweets.keys(), np.int64, len(store._tweets))
+    order = np.argsort(ids)
+    ids = ids[order]
+    authors = np.asarray([t.author_id for t in store._tweets.values()], np.int64)[order]
+    created = np.asarray([t.created_ts for t in store._tweets.values()], np.int64)[order]
+
+    def attach(c):
+        pos = np.clip(np.searchsorted(ids, c.ids), 0, len(ids) - 1)
+        hit = ids[pos] == c.ids
+        c.cols.setdefault("author_id", np.where(hit, authors[pos], c.ids % FY_WORLD["num_authors"]))
+        c.cols.setdefault("created_ts", np.where(hit, created[pos] - t0, c.ids % SPREAD_TS))
+        return lift(c)
+    return attach
+
+
+def ingested_rank(scorer, cols, ingested):
+    """The ingested candidates' mean rank among their request's candidates
+    by ``scorer``'s combined score, as a share (0 the top, 1 the bottom),
+    and how many of them make their request's top FY_TOP_K."""
+    shares, top = [], 0
+    for (_, c, n), (_, combined) in zip(cols, scorer.score_columnar(cols)):
+        n = min(n, combined.shape[0])  # the slots the scorer pads to
+        rank = np.argsort(np.argsort(-combined[:n], kind="stable"), kind="stable")
+        hit = np.isin(c["ids"][:n], np.fromiter(ingested, np.int64, len(ingested)))
+        shares.extend(rank[hit] / max(n - 1, 1))
+        top += int((rank[hit] < FY_TOP_K).sum())
+    return float(np.mean(shares)), top
+
+
+def wp_script(dev, svc, card, cpu, rng, authors):
+    """The write steps, each held card against CPU. Returns the posts, the
+    edits and the suspended authors."""
+    t0 = time.perf_counter()
+    posts = wp_posts(svc, rng, WP_POSTS, WP_T0, authors)
+    torch.cuda.synchronize()
+    t_posts = time.perf_counter() - t0
+    require(not svc.hook_failures and card.log_offset == WP_POSTS, f"write path: {svc.hook_failures} hook errors")
+    replay_on_cpu(cpu, card.calls)
+    same_index(card.index, cpu.index, f"after {WP_POSTS} posts")
+    roots = [t for t in posts if t.reply_to is None]
+    edited = [roots[int(i)] for i in rng.choice(len(roots), WP_EDITS, replace=False)]
+    t_edit = posts[-1].created_ts + 1  # ids are time-ordered: a write at an earlier second could repeat one
+    versions = [svc.edit_tweet(t.tweet_id, wp_text(rng) + " (edited)", now=t_edit + i // 8)
+                for i, t in enumerate(edited)]
+    replay_on_cpu(cpu, card.calls)
+    same_index(card.index, cpu.index, f"after {WP_EDITS} edits")
+    live = [t for t in posts if t.tweet_id not in {e.tweet_id for e in edited}]
+    gone = [live[int(i)] for i in rng.choice(len(live), WP_DELETES - 8, replace=False)] + edited[:8]
+    deleted = [v for t in gone for v in svc.delete_tweet(t.tweet_id)]  # an edited tweet: every version
+    replay_on_cpu(cpu, card.calls)
+    same_index(card.index, cpu.index, f"after {len(gone)} deletes ({len(deleted)} versions)")
+    back = gone[-WP_UNDELETES:]
+    restored = [v for t in back for v in svc.undelete_tweet(t.tweet_id)]
+    replay_on_cpu(cpu, card.calls)
+    same_index(card.index, cpu.index, f"after {len(back)} undeletes ({len(restored)} versions)")
+    for t in edited[8:8 + WP_TAKEDOWNS]:
+        svc.takedown(t.tweet_id, ["de"])
+        require(all(svc.takedowns.is_withheld(v, "DE") for v in svc.edits.versions(t.tweet_id)),
+                "write path: a takedown missed a version of its edit chain")
+    same_index(card.index, cpu.index, f"after {WP_TAKEDOWNS} takedowns (the index untouched)")
+    A = ing.ActionType
+    kinds = (A.CLIENT_TWEET_FAV, A.SERVER_TWEET_FAV, A.CLIENT_TWEET_UNFAV, A.CLIENT_TWEET_RETWEET,
+             A.SERVER_TWEET_REPLY, A.CLIENT_TWEET_QUOTE, A.CLIENT_PROFILE_VISIT)
+    targets = [t.tweet_id for t in posts + versions]
+    actions = [ing.UnifiedUserAction(user_id=int(u), action_type=kinds[int(k)],
+                                     item_id=int(targets[int(i)]) if i < len(targets) else 12345 + int(i),
+                                     timestamp_ms=0)
+               for u, k, i in zip(rng.integers(0, FY_WORLD["num_users"], WP_ENGAGEMENTS),
+                                  rng.integers(0, len(kinds), WP_ENGAGEMENTS),
+                                  rng.integers(0, len(targets) + 64, WP_ENGAGEMENTS))]
+    touched = card.apply_engagements(actions)
+    replay_on_cpu(cpu, card.calls)
+    same_index(card.index, cpu.index, f"after {WP_ENGAGEMENTS} UUA actions ({touched} (id, column) cells)")
+    suspended = [int(a) for a in rng.choice(authors, WP_SUSPENDED, replace=False)]
+    for g in (card, cpu):
+        g.apply_user_updates({a: ing.AuthorState.SUSPENDED for a in suspended})
+    mask = card.visible_author_mask()
+    require(torch.equal(mask.cpu(), cpu.visible_author_mask()) and not bool(mask.all()),
+            "write path: the author masks differ, or no doc is masked")
+    print(f"write_path: {WP_POSTS} posts ({len(roots)} roots, {sum(t.reply_to is not None for t in posts)} replies "
+          f"up to depth {WP_DEPTH}, {sum(t.quoted_tweet_id is not None for t in posts)} quotes, "
+          f"{sum(bool(t.media) for t in posts)} with media; creation times {WP_T0}-{posts[-1].created_ts} s), "
+          f"{WP_EDITS} edits, {len(gone)} deletes ({len(deleted)} versions), {len(back)} undeletes "
+          f"({len(restored)} versions), {WP_TAKEDOWNS} chain-scoped takedowns, {WP_ENGAGEMENTS} UUA actions "
+          f"({touched} (id, column) cells), {WP_SUSPENDED} authors suspended: after each step the card's "
+          f"[{WP_CAPACITY}]-doc index equal to the CPU's, every column (features bit-equal); per-event fanout "
+          f"{WP_POSTS / t_posts:.0f} posts/s on the host clock (store, documents, one ingest each)")
+    return posts, versions, suspended
+
+
+def wp_serving(dev, fy, svc, card, cpu, posts, versions, suspended):
+    """The Following product, the For You batch and search over the ingested
+    index, card against CPU. Returns the batch's launches."""
+    # the Following product: conversation modules and edited-tweet instructions
+    follows = fy["follows"]
+    authors_of = {}
+    for t in posts:
+        authors_of.setdefault(t.author_id, []).append(t)
+    stale = [t.tweet_id for t in posts if svc.edits.is_stale(t.tweet_id)]
+    modules = replaced = 0
+    for u in range(WP_FOLLOWING):
+        q = hp.TimelineQuery(user_id=FY_WORLD["num_users"] - 1 - u, followed_authors=follows[u],
+                             served_tweet_ids=stale[:8], max_results=40, last_polling_ts=WP_T0 + 256)
+        tl, got = following_json(card.index, svc, q)
+        _, want = following_json(cpu.index, svc, q)
+        require(got == want, f"write path: user {u}'s Following timeline differs between the card and the CPU")
+        modules += sum(e.kind == EntryKind.MODULE and e.module.kind == "conversation" for e in tl.entries)
+        replaced += sum(i.op == "replace_entry" for i in tl.instructions)
+    require(modules > 0 and replaced > 0, f"write path: {modules} conversation modules, {replaced} replace_entry")
+
+    # search with the author mask
+    q = earlybird.SearchQuery(tokens=torch.from_numpy(earlybird.tokenize("hello tweet", WP_TOKENS)),
+                              require_all=False, min_ts=0, max_ts=WP_LATE)
+    ids, scores = card.search(q.to(dev), max_results=EB_RESULTS)
+    want_ids, want_scores = cpu.search(q, max_results=EB_RESULTS)
+    moved = check_same_ranking(ids.cpu().numpy()[None], scores.cpu().numpy()[None], want_ids.numpy()[None],
+                               want_scores.numpy()[None], EB_RTOL, EB_ATOL, "write path: masked search")
+    author = {t.tweet_id: t.author_id for t in svc.store._tweets.values()}
+    served = [author[int(i)] for i in ids.cpu().tolist() if i != PAD_ID]
+    bare, _ = earlybird.search(card.index, q.to(dev), max_results=2 * WP_POSTS)  # every matching doc
+    unmasked = {author[int(i)] for i in bare.cpu().tolist() if i != PAD_ID}
+    require(served and not set(served) & set(suspended) and unmasked & set(suspended),
+            "write path: the masked search served a suspended author, or the mask hid nothing")
+
+    # one R=32 For You batch whose earlybird source scans the ingested index. The posts are dated from WP_T0
+    # (their ids stay below 2**31: fault 10) and every other candidate below SPREAD_TS; created_ts is a raw ranker
+    # input, so the lift moves the posts onto the others' clock (WP_T0 earlier: below SPREAD_TS too, in order)
+    s = fy["sources"]
+    eb_card = bf.EarlybirdBatchSource(card.index, foryou_world.NOW, max_results=EB_RESULTS)
+    eb_cpu = bf.EarlybirdBatchSource(cpu.index, foryou_world.NOW, max_results=EB_RESULTS)
+    sources = [s[0], eb_card, s[2], s[3]]
+
+    def engine(scorer, lift=store_lift(fy["lift"], svc.store, WP_T0)):
+        return bf.BatchedForYouEngine(batch_sources=sources, scorer=scorer, head_names=masknet.DEFAULT_HEAD_NAMES,
+                                      lift=lift, max_age_s=10 ** 9)
+
+    batch = [ForYouQuery(user_id=u, followed_authors=follows[u], max_results=FY_TOP_K, now=foryou_world.NOW)
+             for u in range(WP_R)]
+    served_engine = engine(fy["served"].scorer)
+    served_engine.serve_batch(batch)  # warm
+    torch.cuda.synchronize()
+    seg_scan.run_collapse_sorted.launches = 0
+    gather.row_gather.launches = 0
+    out = served_engine.serve_batch(batch)
+    torch.cuda.synchronize()
+    launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
+                "row_gather": _build.launches(gather.row_gather)}
+    require(launches == WP_LAUNCHES, f"write path: the For You batch launched {launches}, want {WP_LAUNCHES}")
+    require(len(out) == WP_R and all(0 < len(o) <= FY_TOP_K for o in out), "write path: a For You list empty")
+    got_eb, want_eb = eb_card.collect(eb_card.dispatch(batch, None)), eb_cpu.collect(eb_cpu.dispatch(batch, None))
+    width = max(len(c.ids) for c in want_eb)
+
+    def padded(cols):
+        i = np.full((len(cols), width), PAD_ID, np.int32)
+        v = np.zeros((len(cols), width), np.float32)
+        for r, c in enumerate(cols):
+            i[r, :len(c.ids)], v[r, :len(c.ids)] = c.ids, c.scores
+        return i, v
+
+    eb_moved = check_same_ranking(*padded(got_eb), *padded(want_eb), EB_RTOL, EB_ATOL,
+                                  "write path: the ingested index's in-network leg")
+    ingested = {t.tweet_id for t in posts + versions}
+    merged, _ = served_engine.columns(batch)
+    n_ingested = sum(len(set(c.ids.tolist()) & ingested) for c in got_eb)
+    scored_ingested = sum(len(set(c.ids.tolist()) & ingested) for c in merged)
+    served_ingested = sum(c.id in ingested for o in out for c in o)
+    require(n_ingested > 0 and scored_ingested == n_ingested and served_ingested > 0,
+            f"write path: {n_ingested} ingested candidates from the in-network leg, {scored_ingested} scored, "
+            f"{served_ingested} served")
+    f32 = engine(fy["host_select"].scorer)
+    _, cols = f32.columns(batch[:WP_CPU_R])
+    # the lift's part: the same requests ranked with the posts at the store's own creation times
+    _, cols_store = engine(fy["host_select"].scorer, store_lift(fy["lift"], svc.store)).columns(batch[:WP_CPU_R])
+    rank_redated, rank_store = (ingested_rank(fy["host_select"].scorer, c, ingested) for c in (cols, cols_store))
+    cpu_scorer = fy["make_scorer"](masknet.MaskNet(fy["cfg32"], device="cpu"), torch.float32, None,
+                                   fy["tables"].to("cpu"))
+    cpu_scorer.model.load_state_dict(fy["ref"].state_dict())
+    err, f_moved, gap = card_against_cpu(fy["host_select"].scorer, cpu_scorer, cols)
+    del cpu_scorer
+    print(f"write_path: the Following product over the ingested index ({WP_FOLLOWING} users, edit chains and a "
+          f"reply-chain resolver over the store): URT JSON equal to the CPU's, {modules} conversation modules and "
+          f"{replaced} replace_entry instructions; EarlybirdIngester.search with the author mask: "
+          f"{len(served)} results, none by the {WP_SUSPENDED} suspended authors (the bare scan serves "
+          f"{len(unmasked & set(suspended))} of them), the CPU's ranking ({moved} ranks apart among near-ties); one "
+          f"R={WP_R} For You batch over it: launches {launches} (as derived: the write path launches none), "
+          f"its in-network leg the CPU's ({eb_moved} ranks apart among near-ties; {n_ingested} ingested "
+          f"candidates, all scored, {served_ingested} in the served top-{FY_TOP_K}s; over {WP_CPU_R} requests in "
+          f"f32 the ingested candidates' mean rank share {rank_redated[0]:.3f} (0 the top), {rank_redated[1]} in the "
+          f"top-{FY_TOP_K}s, against {rank_store[0]:.3f} and {rank_store[1]} at the store's creation times, "
+          f"~{WP_T0} s), f32 scores of {WP_CPU_R} requests within rel {err:.3g} of the CPU's (rtol {FY_RTOL}; "
+          f"top-{FY_TOP_K} {f_moved} ranks apart among near-ties)")
+    return launches
+
+
+def wp_persistence(dev, svc, card, cpu, rng, authors, root):
+    """Flush and load; a tail posted while the Following product serves
+    from another thread, each served batch held against the CPU on the index
+    version it read, then replayed onto the snapshot; roll-off; feature
+    updates at B = WP_UPDATES."""
+    path = os.path.join(root, "segment.npz")
+    t0 = time.perf_counter()
+    pers.flush_index(card.index, path, card.log_offset)
+    t_flush = time.perf_counter() - t0
+    loaded, offset = pers.load_index(path, device=dev)
+    same_index(loaded, cpu.index, "flushed and loaded")
+    require(offset == card.log_offset, "write path: the snapshot's log offset")
+
+    # the tail, ingested per event while another thread serves Following timelines
+    q = hp.TimelineQuery(user_id=0, followed_authors=list(authors[:64]), max_results=40)
+    seen, done = [], threading.Event()
+
+    def serve():
+        while not done.is_set() or not seen:
+            v = card.index  # one version a batch
+            seen.append((v, following_json(v, svc, q)[1]))
+
+    reader = threading.Thread(target=serve)
+    reader.start()
+    tail = []
+    try:
+        for c in range(WP_TAIL // WP_CHUNK):  # a chunk after each batch the reader finishes
+            n = len(seen)
+            while len(seen) == n and reader.is_alive():
+                time.sleep(0.001)
+            tail += wp_posts(svc, rng, WP_CHUNK, WP_T0 + WP_POSTS // 8 + 60 + c * WP_CHUNK // 8, authors[:64])
+    finally:
+        done.set()
+        reader.join()
+    calls = list(card.calls)
+    replay_on_cpu(cpu, card.calls)
+    same_index(card.index, cpu.index, f"after the {WP_TAIL}-post tail")
+    versions = {}
+    for v, got in seen:
+        if id(v) not in versions:
+            versions[id(v)] = earlybird.EarlybirdIndex(*(to_cpu(x) for x in v[:5]), v.write_pos)
+        require(got == following_json(versions[id(v)], svc, q)[1],
+                "write path: a Following batch served during ingest differs from the CPU on its index version")
+    require(len(versions) >= 2, f"write path: the served batches read {len(versions)} index version(s)")
+    docs = [earlybird.build_documents(c[1], card.config, now=c[2])[:5] for c in calls if c[0] == "ingest"]
+    tail_docs = tuple(torch.cat(c) for c in zip(*docs))
+    replayed, new_offset = pers.load_index(path, replay=lambda off: (*tail_docs, off + len(tail)), device=dev)
+    same_index(replayed, cpu.index, f"the snapshot with the {WP_TAIL}-post tail replayed")
+    require(new_offset == card.log_offset, "write path: the replayed log offset")
+
+    # roll-off: the older half into an archive tier
+    live = cpu.index.author != PAD_ID
+    cut = int(cpu.index.created_ts[live].float().median())
+    arch_cfg = earlybird.EarlybirdConfig(capacity=WP_CAPACITY, max_tokens=WP_TOKENS)
+    rolled = pers.roll_expired(card.index, earlybird.init_index(arch_cfg, dev), now=cut + 3600, retention_s=3600)
+    want = pers.roll_expired(cpu.index, earlybird.init_index(arch_cfg, "cpu"), now=cut + 3600, retention_s=3600)
+    same_index(rolled[0], want[0], "the realtime tier after roll-off")
+    same_index(rolled[1], want[1], "the archive tier after roll-off")
+    require(rolled[2] == want[2] and abs(rolled[2] - int(live.sum()) / 2) < 0.1 * int(live.sum()),
+            f"write path: {rolled[2]} docs rolled of {int(live.sum())}")
+
+    # feature updates at B = WP_UPDATES: ids in the ring (some twice), misses; small whole deltas sum exactly
+    ids = cpu.index.tweet_ids[live].numpy()
+    pick = np.r_[rng.choice(ids, WP_UPDATES - 512), rng.integers(1, 1 << 20, 512)].astype(np.int32)
+    cols = rng.integers(0, len(earlybird.DOC_FEATURES), WP_UPDATES).astype(np.int32)
+    vals = rng.integers(-4, 5, WP_UPDATES).astype(np.float32)
+    for name, fn in (("increment_feature", pers.increment_feature), ("apply_feature_updates",
+                                                                     pers.apply_feature_updates)):
+        if name == "apply_feature_updates":  # one value a (slot, column): a set with repeats is unspecified
+            _, first = np.unique(np.stack([pick, cols], 1), axis=0, return_index=True)
+            pick, cols, vals = pick[np.sort(first)], cols[np.sort(first)], vals[np.sort(first)]
+        got = fn(card.index, *(torch.from_numpy(a).to(dev) for a in (pick, cols, vals)))
+        same_index(got, fn(cpu.index, *(torch.from_numpy(a) for a in (pick, cols, vals))), name)
+    print(f"write_path: flushed ({t_flush:.1f} s, {os.path.getsize(path) / 1e6:.1f} MB .npz) and loaded equal; "
+          f"{WP_TAIL} posts ingested per event while {len(seen)} Following batches served from another thread, "
+          f"each equal to the CPU's on the index version it read ({len(versions)} versions); the tail replayed onto "
+          f"the snapshot equal to the live index; roll_expired moved {rolled[2]} of {int(live.sum())} live docs "
+          f"into an archive index, both tiers equal to the CPU's; increment_feature ({WP_UPDATES} ids, 512 misses) "
+          f"and apply_feature_updates ({len(pick)} distinct cells) equal to the CPU's")
+
+
+def phase_write_path(dev, fy):
+    """The write path on the card (see WP_*). Returns its launches."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    authors = np.arange(FY_WORLD["num_authors"], dtype=np.int64)
+    cfg = earlybird.EarlybirdConfig(capacity=WP_CAPACITY, max_tokens=WP_TOKENS)
+    svc = tweetypie.TweetWriteService()
+    card = RecordingIngester(cfg, store=svc.store, device=dev)
+    cpu = ing.EarlybirdIngester(cfg, store=svc.store, device="cpu")
+    tweetypie.ingester_fanout(svc, card)
+    posts, versions, suspended = wp_script(dev, svc, card, cpu, rng, authors)
+
+    # the same posts as one batch on a fresh ingester: the micro-batch rate
+    raws = [tweetypie.to_raw_tweet(svc.store, t, now=t.created_ts) for t in posts]
+    batched = ing.EarlybirdIngester(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched.ingest_tweets(raws, now=WP_T0 + WP_POSTS // 8)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    del batched
+    print(f"write_path: the same {WP_POSTS} tweets as one ingest_tweets batch: {WP_POSTS / t_batch:.0f} tweets/s "
+          f"on the host clock (documents built on the host, one ingest)")
+
+    launches = wp_serving(dev, fy, svc, card, cpu, posts, versions, suspended)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        wp_persistence(dev, svc, card, cpu, rng, authors, root)
+
+    # fault 10: a post whose id passes int32 is refused by the ingester, recorded by the service
+    before, errors = card.index, svc.hook_failures
+    late = svc.post_tweet(1, "posted at bench.py's clock", now=WP_LATE)
+    torch.cuda.synchronize()
+    require(late.tweet_id >= 2 ** 31 and late.tweet_id in svc.store._tweets, "write path: the late post")
+    require(svc.hook_failures == errors + 1 and isinstance(svc.hook_errors[-1][1], ValueError)
+            and str(late.tweet_id) in str(svc.hook_errors[-1][1]),
+            f"write path: fault 10 not recorded ({svc.hook_failures - errors} new hook errors)")
+    require(card.index is before, "write path: the refused post changed the index")
+    print(f"write_path: fault 10: a post at now={WP_LATE} (id {late.tweet_id}, past 2**31) was written to the "
+          f"store and refused by the ingester; the service recorded \"{svc.hook_errors[-1][1]}\" and the index "
+          f"is unchanged")
+    print(f"write_path: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# the offline SimClusters jobs over a planted-community follow graph at
+# the FRS world's user and author counts: the sims graph, KnownFor's
+# iteration, InterestedIn, producer embeddings; and tweepcred over the FRS
+# world's follow graph. Card against the port on the CPU on the same inputs.
+OS_GRAPH = dict(num_users=16_384, num_producers=4_096, follows_per_user=48, num_communities=64, seed=16)
+OS_SIMS_TOP = 64
+OS_C = 256  # KnownFor clusters
+OS_ITERS = 6
+OS_MAX_CLUSTERS = 50  # InterestedIn's top clusters a user
+OS_PRODUCER_K = (50, 100)  # top clusters a producer, top producers a cluster
+OS_RECOVERY = 0.8  # assigned share and purity: the JAX test's bounds (tests/test_simclusters_offline.py:120-138)
+OS_RTOL, OS_ATOL = 1e-5, 1e-6  # card against CPU: f32 sums in another order
+OS_PR = dict(threshold=1e-6, max_iterations=50)  # tweepcred's PageRank
+OS_PR_SUM = 1e-4
+# run_collapse launches of the path, from the code: KnownFor 2 an iteration
+# (cluster_stats' scatter, the [P, D] k = 4 row dedup) + 1 (final_scores'
+# cluster_stats); InterestedIn 2 (the [U, D] k = 4 row dedup, the cluster
+# norms' scatter); the producer matrix 1; tweepcred 1 an iteration
+OS_LAUNCHES = {"known_for": 2 * OS_ITERS + 1, "interested_in": 2, "producer_embeddings": 1}
+# k = 4 held against its plain version on every case of tests/test_torch_kernels.py's COLLAPSE_CASES
+K4_CASES = [(5, 1, 0), (5, 3, 0), (5, 2048, 0), (5, 4095, 0), (5, 4096, 0), (5, 4097, 0),
+            (5, seg_scan.MAX_CLUSTER * seg_scan.SHAPE.tile_max - 1, 0),
+            (5, seg_scan.MAX_CLUSTER * seg_scan.SHAPE.tile_max + 1, 0), (5, 20_000, 0), (5, 200_000, 0),
+            (1, 20_000, 0), (1000, 4097, 0), (5, 20_000, 1), (32, 256, 0), (256, 4096, 0)]
+
+
+def k4_cases(dev):
+    """run_collapse at k = 4 against its plain version on the kernel tests'
+    cases (rows by q % 5: runs crossing every tile edge, a PAD tail, one
+    run, random runs, all PAD; an offset of 1 slot off 16-byte alignment),
+    both against float64 run totals: the kernel within rtol 1e-5 / atol
+    1e-6, as tests/test_torch_kernels.py holds it; the plain version's
+    scatter_add_ (atomics in no fixed order on the card) within m·2⁻²⁴·Σ|x|
+    for a run of m terms, and the two within the sum of their bounds.
+    Returns the largest |kernel - plain|."""
+    worst = 0.0
+    for Q, W, offset in K4_CASES:
+        rng = np.random.default_rng(W + 4 + Q)
+        tile = seg_scan._plan(Q, W, 4, torch.cuda.get_device_properties(dev).multi_processor_count).tile
+        ids = np.sort(rng.integers(0, max(1, W // 5), size=(Q, W)).astype(np.int32), axis=1)
+        for q in range(Q):
+            kind = q % 5
+            if kind == 0:
+                ids[q] = (np.arange(W) + tile // 2) // tile
+            elif kind == 1:
+                ids[q, -(W // 5 + 1):] = PAD_ID
+            elif kind == 2:
+                ids[q] = 5
+            elif kind == 4:
+                ids[q] = PAD_ID
+        vals = [rng.random((Q, W)).astype(np.float32) for _ in range(4)]
+        args = []
+        for a in (ids, *vals):
+            t = torch.empty(a.size + offset, dtype=torch.from_numpy(a).dtype, device=dev)[offset:].view(a.shape)
+            args.append(t.copy_(torch.from_numpy(a)))
+        got = seg_scan.run_collapse_sorted(*args)
+        want = seg_scan.run_collapse_sorted_plain(*args)
+        require(torch.equal(got[0], want[0]), f"k=4 at [{Q}, {W}] offset {offset}: slots differ from plain")
+        head = np.ones((Q, W), bool)
+        head[:, 1:] = ids[:, 1:] != ids[:, :-1]
+        last = np.ones((Q, W), bool)
+        last[:, :-1] = head[:, 1:]
+        last &= ids != PAD_ID
+        run = np.cumsum(head.reshape(-1)) - 1
+        terms = np.bincount(run)[run].reshape(Q, W)
+        for g, w, v in zip(got[1:], want[1:], vals):
+            v64 = v.reshape(-1).astype(np.float64)
+            s64 = np.where(last, np.bincount(run, weights=v64)[run].reshape(Q, W), 0.0)
+            mags = np.where(last, np.bincount(run, weights=np.abs(v64))[run].reshape(Q, W), 0.0)
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            kernel_bound = 1e-6 + 1e-5 * np.abs(s64)
+            plain_bound = terms * 2.0 ** -24 * mags
+            for x, bound, name in ((g, kernel_bound, "kernel"), (w, plain_bound, "plain")):
+                err = np.abs(x - s64)
+                require(bool((err <= bound).all()),
+                        f"k=4 at [{Q}, {W}] offset {offset}: {name} sums off float64 by {err.max():.3g} "
+                        f"(at most {bound.flat[np.argmax(err - bound)]:.3g} there)")
+            diff = np.abs(g - w)
+            require(bool((diff <= kernel_bound + plain_bound).all()),
+                    f"k=4 at [{Q}, {W}] offset {offset}: kernel and plain apart by {diff.max():.3g}")
+            worst = max(worst, float(diff.max()))
+    return worst
+
+
+def recovery(cluster, community):
+    """(assigned share, mean purity of the clusters of 3 or more members)."""
+    assigned = cluster >= 0
+    purities = [np.bincount(community[cluster == c]).max() / (cluster == c).sum()
+                for c in np.unique(cluster[assigned]) if (cluster == c).sum() >= 3]
+    return float(assigned.mean()), float(np.mean(purities))
+
+
+def counted_collapse(fn):
+    """``fn()`` on the card with run_collapse_sorted's launches counted."""
+    torch.cuda.synchronize()
+    seg_scan.run_collapse_sorted.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _build.launches(seg_scan.run_collapse_sorted)
+
+
+def phase_offline_simclusters_alone(dev):
+    """``chip_smoke.py --offline-simclusters``: the phase in a process of its
+    own, over the FRS world built again from its seed. In the main process,
+    after some 130 profiler sessions, the copy_ yardstick of the producer
+    matrix's collapse saw 511 of 540 copies five times running (the limit is
+    MIN_SEEN) and failed a whole run. Returns the launches."""
+    return phase_offline_simclusters(dev, frs_world.build(device=dev))[0]
+
+
+def phase_offline_simclusters(dev, frs):
+    """The offline jobs on the card against the CPU (see OS_*), then the new
+    k = 4 and one-row collapse shapes timed. Returns the launches and the
+    kernel rows."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    world = synthetic.community_graph(synthetic.CommunityGraphConfig(**OS_GRAPH))
+    U, P = OS_GRAPH["num_users"], OS_GRAPH["num_producers"]
+    t_world = time.perf_counter() - t0
+    pids = torch.from_numpy(world.producer_ids).to(dev)
+    graph = sims_graph.symmetrize(sims_graph.cosine_similarity_graph(
+        sims_graph.follow_matrix_from_adjacency(pids, P), top_k=OS_SIMS_TOP))
+    graph_cpu = graph.to("cpu")
+    init = known_for.initialize_random(torch.Generator(device=dev).manual_seed(OS_GRAPH["seed"]), P, OS_C)
+    params = known_for.KnownForParams(num_clusters=OS_C)
+    t0 = time.perf_counter()
+    kf, n_kf = counted_collapse(lambda: known_for.iterate(graph, init, params, OS_ITERS))
+    t_kf = time.perf_counter() - t0
+    kf_cpu = known_for.iterate(graph_cpu, known_for.KnownFor(init.cluster.cpu(), init.score.cpu()), params, OS_ITERS)
+    diff = int((kf.cluster.cpu() != kf_cpu.cluster).sum())
+    require(diff == 0, f"offline: KnownFor's cluster ids differ between the card and the CPU at {diff} producers")
+    require(torch.allclose(kf.score.cpu(), kf_cpu.score, rtol=OS_RTOL, atol=OS_ATOL), "offline: KnownFor scores")
+    share, purity = recovery(kf.cluster.cpu().numpy(), world.producer_community)
+    require(share > OS_RECOVERY and purity > OS_RECOVERY, f"offline: KnownFor recovered share {share:.3f}, "
+                                                          f"purity {purity:.3f}")
+
+    ff = interested_in.FollowFavGraph(*(torch.from_numpy(np.asarray(a)) for a in (
+        world.producer_ids, world.followed, world.fav_score, world.log_fav_score)))
+    ii_params = interested_in.InterestedInParams(num_clusters=OS_C, max_clusters_per_user=OS_MAX_CLUSTERS)
+    t0 = time.perf_counter()
+    ii, n_ii = counted_collapse(lambda: interested_in.interested_in_from_known_for(ff.to(dev), kf, ii_params))
+    t_ii = time.perf_counter() - t0
+    ii_cpu = interested_in.interested_in_from_known_for(ff, kf_cpu, ii_params)
+    moved = check_same_ranking(ii.ids.cpu().numpy(), ii.fav_score.cpu().numpy(), ii_cpu.ids.numpy(),
+                               ii_cpu.fav_score.numpy(), OS_RTOL, OS_ATOL, "offline: InterestedIn")
+    same = ii.ids.cpu() == ii_cpu.ids  # the other scores, where the ranking put the same cluster
+    for name in ("follow_score", "log_fav_score", "fav_cluster_normalized", "log_fav_cluster_normalized"):
+        require(torch.allclose(getattr(ii, name).cpu()[same], getattr(ii_cpu, name)[same], rtol=OS_RTOL,
+                               atol=OS_ATOL), f"offline: InterestedIn {name}")
+    covered = float((ii.ids != PAD_ID).any(1).float().mean())
+
+    kp, kc = OS_PRODUCER_K
+    pe_args = (ff.producer_ids, ff.fav_score, ii_cpu.ids, ii_cpu.fav_cluster_normalized)
+    t0 = time.perf_counter()
+    emb, n_pe = counted_collapse(lambda: producer_embeddings.producer_embeddings_from_interested_in(
+        *(a.to(dev) for a in pe_args), num_producers=P, num_clusters=OS_C, top_k_clusters=kp, top_k_producers=kc))
+    t_pe = time.perf_counter() - t0
+    dense = producer_embeddings.producer_cluster_matrix(*(a.to(dev) for a in pe_args), P, OS_C)
+    dense_cpu = producer_embeddings.producer_cluster_matrix(*pe_args, P, OS_C)
+    require(torch.allclose(dense.cpu(), dense_cpu, rtol=OS_RTOL, atol=OS_ATOL), "offline: the producer matrix")
+    emb_cpu = producer_embeddings.producer_embeddings_from_interested_in(
+        *pe_args, num_producers=P, num_clusters=OS_C, top_k_clusters=kp, top_k_producers=kc)
+    pe_moved = check_same_ranking(emb.by_producer.ids.cpu().numpy(), emb.by_producer.scores.cpu().numpy(),
+                                  emb_cpu.by_producer.ids.numpy(), emb_cpu.by_producer.scores.numpy(),
+                                  OS_RTOL, OS_ATOL, "offline: producer embeddings")
+
+    # tweepcred over the FRS world's follow graph, its prior from seeded account flags
+    fl = frs.follow_adj
+    N = fl.shape[0]
+    g = torch.Generator().manual_seed(OS_GRAPH["seed"])
+    flags = [torch.rand(N, generator=g) < p for p in (0.01, 0.02)]
+    age = torch.randint(0, 2000, (N,), generator=g)
+    device_ok, restricted = torch.rand(N, generator=g) < 0.7, torch.rand(N, generator=g) < 0.05
+    prior = tweepcred.user_mass_prior(flags[0], flags[1], age, device_ok, restricted)
+    edges = tweepcred.OutEdges(fl, (fl != PAD_ID).float())
+    pr_params = tweepcred.PageRankParams(**OS_PR)
+    t0 = time.perf_counter()
+    (pr, iters), n_pr = counted_collapse(lambda: tweepcred.weighted_pagerank(edges, prior.to(dev), pr_params))
+    t_pr = time.perf_counter() - t0
+    pr_cpu, iters_cpu = tweepcred.weighted_pagerank(tweepcred.OutEdges(*(t.cpu() for t in edges)), prior, pr_params)
+    require(iters == iters_cpu and n_pr == iters, f"offline: PageRank {iters} iterations ({n_pr} launches), "
+                                                  f"{iters_cpu} on the CPU")
+    require(abs(float(pr.double().sum()) - 1.0) < OS_PR_SUM, f"offline: PageRank sums to {float(pr.sum())}")
+    require(torch.allclose(pr.cpu(), pr_cpu, rtol=OS_RTOL, atol=1e-9), "offline: PageRank, card against CPU")
+    rep_apart = int((tweepcred.scaled_reputation(pr).cpu() != tweepcred.scaled_reputation(pr_cpu)).sum())
+    require(rep_apart <= 2, f"offline: {rep_apart} reputations differ (a mass within rounding of a half step)")
+
+    derived = dict(OS_LAUNCHES, tweepcred=iters)
+    got = {"known_for": n_kf, "interested_in": n_ii, "producer_embeddings": n_pe, "tweepcred": n_pr}
+    require(got == derived, f"offline: launches {got}, want {derived} (from the code)")
+    print(f"offline_simclusters: {card_line()}; planted graph {U} users x {P} producers, {OS_GRAPH['num_communities']} "
+          f"communities, {OS_GRAPH['follows_per_user']} follows a user (numpy, {t_world:.1f} s, set-up); sims graph "
+          f"top {OS_SIMS_TOP} symmetrized on the card; KnownFor C={OS_C}, {OS_ITERS} iterations: cluster ids equal to "
+          f"the CPU's, scores within rtol {OS_RTOL}, assigned share {share:.3f}, purity {purity:.3f} (limits "
+          f"{OS_RECOVERY}), {t_kf * 1e3:.1f} ms; InterestedIn (top {OS_MAX_CLUSTERS}): {covered:.3f} of users with "
+          f"a cluster, the CPU's ranking ({moved} places apart among near-ties), {t_ii * 1e3:.1f} ms; producer "
+          f"embeddings over fav_norm ([{P}, {OS_C}] from {U * world.producer_ids.shape[1] * ii.ids.shape[1]} "
+          f"triples, one sort and one collapse): the matrix within rtol {OS_RTOL} of the CPU's, top-{kp} clusters "
+          f"a producer the CPU's ({pe_moved} apart among near-ties), {t_pe * 1e3:.1f} ms; tweepcred over the FRS "
+          f"follow graph [{N}, {fl.shape[1]}]: {iters} iterations as on the CPU (threshold {OS_PR['threshold']}), "
+          f"sum {float(pr.double().sum()):.7f}, within rtol {OS_RTOL} of the CPU, {t_pr * 1e3:.1f} ms (host clock, "
+          f"not a benchmark); launches {got}, as derived")
+
+    # the new shapes, timed: each collapse's inputs recorded from a path call
+    k4_err = k4_cases(dev)
+    print(f"offline_simclusters: run_collapse k=4 against its plain version on all {len(K4_CASES)} COLLAPSE_CASES: "
+          f"same slots; the kernel within rtol 1e-5 / atol 1e-6 of float64, the plain version (scatter_add_'s "
+          f"atomics) within m·2⁻²⁴·Σ|x| of it, the two within the sum (max |kernel - plain| {k4_err:.3g})")
+    rows = {}
+    seen = recorded(segment, "run_collapse_sorted", lambda: known_for.update_iteration(graph, init, params))
+    rows["KnownFor row dedup k=4"] = time_collapse(seen[1], "KnownFor's per-producer cluster stats")
+    rows["KnownFor cluster stats"] = time_collapse(seen[0], "KnownFor's cluster_stats scatter")
+    seen = recorded(segment, "run_collapse_sorted",
+                    lambda: interested_in.interested_in_from_known_for(ff.to(dev), kf, ii_params))
+    rows["InterestedIn row dedup k=4"] = time_collapse(seen[0], "InterestedIn's per-user cluster sums")
+    rows["InterestedIn cluster norms"] = time_collapse(seen[1], "InterestedIn's cluster norms scatter")
+    seen = recorded(segment, "run_collapse_sorted",
+                    lambda: producer_embeddings.producer_cluster_matrix(*(a.to(dev) for a in pe_args), P, OS_C))
+    rows["producer matrix"] = time_collapse(seen[0], "the producer matrix's sorted (p, c) keys")
+    seen = recorded(tweepcred, "run_collapse_sorted", lambda: tweepcred.InEdgeSum(
+        fl, fl != PAD_ID, N)(torch.ones(fl.shape, device=dev)))
+    rows["tweepcred in-edge sum"] = time_collapse(seen[0], "tweepcred's sorted in-edges")
+    print(f"offline_simclusters: new kernel shapes (device time; {card_line()}): " + "; ".join(
+        f"{k} {v['device_ms']:.4f} ms (plain {v['plain_device_ms']:.4f}, copy_ {v['copy_ms']:.4f}, bound "
+        f"{v['bound_ms']:.4f} ms)" for k, v in rows.items()))
+    print(f"offline_simclusters: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"run_collapse": sum(got.values()), "row_gather": 0}, rows
 
 
 # the exact retrieval tier as bench.py serves it (bench.py:616-694): the turbo
@@ -5824,6 +6557,8 @@ def main() -> int:
     by_path["edge"] = phase_edge(dev, fy, home)
     del home
     by_path.update(phase_products(dev, fy, cand_world, world))
+    by_path["write_path"] = phase_write_path(dev, fy)
+    by_path["offline_simclusters"] = phase_apart("--offline-simclusters", "offline_simclusters")
     by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
     emb = phase_apart("--embedding-training", "embedding_training")
     by_path["embedding_training"] = emb["launches"]
@@ -5859,7 +6594,8 @@ if __name__ == "__main__":
     CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone,
                     "--embedding-training": phase_embedding_training, "--collapse-rows": phase_collapse_rows_sweep,
                     "--mesh": lambda dev: phase_mesh(dev, sys.argv[2] if sys.argv[2:] else None),
-                    "--mesh-training": phase_mesh_training}
+                    "--mesh-training": phase_mesh_training,
+                    "--offline-simclusters": phase_offline_simclusters_alone}
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-training-rank"]:

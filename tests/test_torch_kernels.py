@@ -70,7 +70,7 @@ COLLAPSE_CASES = [(5, 1, 0), (5, 3, 0), (5, 2048, 0), (5, 4095, 0), (5, 4096, 0)
                   (1000, 4097, 0), (5, 20_000, 1), (32, 256, 0), (256, 4096, 0)]
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("Q,W,offset", COLLAPSE_CASES)
 def test_run_collapse_kernel_matches_plain(cuda_device, k, Q, W, offset):
     rng = np.random.default_rng(W + k + Q)

@@ -78,7 +78,7 @@ def test_dedup_sum_matches_jax_scan_path():
         )
 
 
-@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("k", [1, 3, 4])
 def test_plain_takes_one_to_three_value_arrays(k):
     rng = np.random.default_rng(k)
     ids, vals = _sorted_rows(rng, 2, 64, 9, k)
@@ -106,7 +106,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         (torch.zeros(2, 4, dtype=torch.int64), (torch.zeros(2, 4),)),  # id dtype
         (torch.zeros(2, 4, dtype=torch.int32), (torch.zeros(2, 5),)),  # shape
         (torch.zeros(2, 4, dtype=torch.int32), (torch.zeros(2, 4, dtype=torch.float64),)),
-        (torch.zeros(2, 4, dtype=torch.int32), (torch.zeros(2, 4),) * 4),  # k > 3
+        (torch.zeros(2, 4, dtype=torch.int32), (torch.zeros(2, 4),) * 5),  # k > 4
         (torch.zeros(2, 4, dtype=torch.int32), ()),  # k = 0
         (torch.zeros(4, 2, dtype=torch.int32).T, (torch.zeros(2, 4),)),  # not contiguous
         (torch.zeros(8, dtype=torch.int32), (torch.zeros(8),)),  # not 2-D
@@ -121,7 +121,7 @@ def test_rejects_what_the_kernel_does_not_take(ids, values):
 SHAPES = [seg_scan.SHAPE, seg_scan.TileShape(2040, 3, 1), seg_scan.TileShape(4088, 1, 4)]
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("W", [1, 3, 4, 5, 4095, 4097, 20_000, 32_705, 200_000])
 @pytest.mark.parametrize("Q", [1, 5, 32, 256, 1000])
 def test_plan_covers_every_slot_within_the_kernels_limits(Q, W, k):
@@ -138,7 +138,7 @@ def test_plan_covers_every_slot_within_the_kernels_limits(Q, W, k):
         assert stages == shape.stages and smem == stages * (1 + k) * threads * 32 <= seg_scan.SMEM_PER_CTA, plan
 
 
-@pytest.mark.parametrize("args", [(0, 5, 2), (5, 0, 2), (5, 5, 0), (5, 5, 4)])
+@pytest.mark.parametrize("args", [(0, 5, 2), (5, 0, 2), (5, 5, 0), (5, 5, 5)])
 def test_plan_refuses_what_the_kernel_does_not_take(args):
     with pytest.raises(ValueError):
         seg_scan._plan(*args, 132)

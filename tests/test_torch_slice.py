@@ -153,7 +153,9 @@ def test_port_imports_no_jax():
         "       'mixers.follow_recommendations', 'mixers.frs_catalog', 'mixers.timeline_ranker',\n"
         "       'mixers.topic_social_proof', 'models.push_rankers', 'models.trust_safety', 'mixers.push_candidates',\n"
         "       'mixers.pushservice', 'models.trust_safety_train', 'actions.uua_adapters', 'actions.enricher',\n"
-        "       'actions.recos_injector', 'data.frs_world'}\n"
+        "       'actions.recos_injector', 'data.frs_world', 'storage.tweetypie', 'search.persistence',\n"
+        "       'search.ingester', 'ops.segment', 'ops.sparse', 'simclusters.known_for',\n"
+        "       'simclusters.interested_in', 'simclusters.producer_embeddings', 'graph.tweepcred'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'the_algorithm_tpu.')))\n"
         "assert not bad, bad\n"

@@ -41,8 +41,8 @@ _L = ctypes.c_longlong
 # C signatures of the entry points (csrc/*.cu); every pointer and the stream
 # are void*, or ctypes would pass a 64-bit pointer as a 32-bit int
 _SIGNATURES = {
-    # ids, v0, v1, v2, out_ids, o0, o1, o2, Q, W, k, cluster, tile, passes, stages, threads, smem, stream
-    "run_collapse_sorted": [_P] * 8 + [_I] * 9 + [_P],
+    # ids, v0..v3, out_ids, o0..o3, Q, W, k, cluster, tile, passes, stages, threads, smem, stream
+    "run_collapse_sorted": [_P] * 10 + [_I] * 9 + [_P],
     # ids, perm, dy, out, scratch, flags, n, D, N, grid, vec, zero_rows, stream
     "run_collapse_rows": [_P] * 6 + [_L] + [_I] * 5 + [_P],
     # ids, B, R, k, t0, t1, t2, o0, o1, o2, rb0, rb1, rb2, rows, piece, stages, grid, smem, stream

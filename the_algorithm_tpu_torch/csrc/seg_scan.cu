@@ -57,7 +57,7 @@ constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MAX_STAGES = 3;
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
-constexpr int MAX_VALUES = 3;
+constexpr int MAX_VALUES = 4;
 constexpr int SMEM_PER_BLOCK = 232448;  // 227 KB: the most a block can opt in to
 constexpr int PAD_ID = 0x7fffffff;      // int32 max: sorts after every real id
 constexpr unsigned FULL = 0xffffffffu;
@@ -462,7 +462,7 @@ cudaError_t launch(const Arrays& a, int Q, int W, int cluster, int tile, int pas
 
 }  // namespace
 
-// ids/values/outputs: [Q, W] contiguous on the device; k in {1, 2, 3} value
+// ids/values/outputs: [Q, W] contiguous on the device; k in {1, 2, 3, 4} value
 // arrays (unused pointers may be null). The launch's shape comes from the
 // caller (ops/seg_scan.py:_plan): a cluster of `cluster` CTAs to a row, tiles
 // of `tile` slots (a multiple of 4), `passes` passes so that
@@ -471,8 +471,8 @@ cudaError_t launch(const Arrays& a, int Q, int W, int cluster, int tile, int pas
 // up to 3 slots before it in its first 16 bytes), and `smem` bytes of dynamic
 // shared memory, stages * (1 + k) * threads * 32. The grid is sized here.
 // Returns the launch's cudaError_t.
-extern "C" int run_collapse_sorted(const void* ids, const void* v0, const void* v1, const void* v2,
-                                   void* out_ids, void* o0, void* o1, void* o2, int Q, int W, int k, int cluster,
+extern "C" int run_collapse_sorted(const void* ids, const void* v0, const void* v1, const void* v2, const void* v3,
+                                   void* out_ids, void* o0, void* o1, void* o2, void* o3, int Q, int W, int k, int cluster,
                                    int tile, int passes, int stages, int threads, int smem, void* stream) {
   if (Q <= 0 || W <= 0) return 0;
   const bool ok = k >= 1 && k <= MAX_VALUES && cluster >= 1 && cluster <= MAX_CLUSTER && tile >= 4 &&
@@ -483,9 +483,10 @@ extern "C" int run_collapse_sorted(const void* ids, const void* v0, const void* 
                   static_cast<long long>(Q) * cluster <= INT32_MAX;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Arrays a{static_cast<const int*>(ids),
-                 {static_cast<const float*>(v0), static_cast<const float*>(v1), static_cast<const float*>(v2)},
+                 {static_cast<const float*>(v0), static_cast<const float*>(v1), static_cast<const float*>(v2),
+                  static_cast<const float*>(v3)},
                  static_cast<int*>(out_ids),
-                 {static_cast<float*>(o0), static_cast<float*>(o1), static_cast<float*>(o2)}};
+                 {static_cast<float*>(o0), static_cast<float*>(o1), static_cast<float*>(o2), static_cast<float*>(o3)}};
   // bulk copies take 16-byte-aligned addresses: with every pointer aligned, a
   // slot's alignment is its element index's
   bool bulk = reinterpret_cast<uintptr_t>(ids) % 16 == 0 && reinterpret_cast<uintptr_t>(out_ids) % 16 == 0;
@@ -496,6 +497,7 @@ extern "C" int run_collapse_sorted(const void* ids, const void* v0, const void* 
   if (k == 1) err = launch<1>(a, Q, W, cluster, tile, passes, stages, threads, smem, bulk, s);
   if (k == 2) err = launch<2>(a, Q, W, cluster, tile, passes, stages, threads, smem, bulk, s);
   if (k == 3) err = launch<3>(a, Q, W, cluster, tile, passes, stages, threads, smem, bulk, s);
+  if (k == 4) err = launch<4>(a, Q, W, cluster, tile, passes, stages, threads, smem, bulk, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,7 @@ tile of the row per pass; :func:`_plan` sizes the launch from Q, W, k and the
 SM count.
 
 :func:`run_collapse_rows` is the same collapse at k = D, the TPU kernel's
-any-k form that the k ≤ 3 templates do not reach: the D columns of an
+any-k form that the k ≤ 4 templates do not reach: the D columns of an
 embedding table's output gradient summed per run of sorted ids and written
 into a dense [N, D] gradient, every row once, zeros included, by one launch
 (``csrc/seg_scan.cu``, ``run_collapse_rows_kernel``;
@@ -36,7 +36,7 @@ import torch
 from the_algorithm_tpu_torch import _build
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID
 
-MAX_VALUES = 3  # the kernel's template instances: k = 1, 2, 3 value arrays
+MAX_VALUES = 4  # the kernel's template instances: k = 1, 2, 3, 4 value arrays
 ITEMS = 8  # consecutive slots a thread scans (csrc/seg_scan.cu)
 MAX_THREADS = 512
 MAX_STAGES = 3
@@ -138,7 +138,7 @@ def run_collapse_sorted(
 ) -> Tuple[torch.Tensor, ...]:
     """Collapse equal-id runs of pre-sorted rows by summing ``values``.
 
-    ids: [Q, W] int32 sorted ascending per row; values: 1 to 3 arrays
+    ids: [Q, W] int32 sorted ascending per row; values: 1 to 4 arrays
     [Q, W] float32, all contiguous on one device. Returns (rep_ids, *sums) of
     the same shape. On a CUDA device this launches the kernel or raises; only
     tensors on the CPU take the plain version.

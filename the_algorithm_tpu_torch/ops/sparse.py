@@ -53,6 +53,29 @@ def make(ids: torch.Tensor, scores: torch.Tensor, capacity: int) -> SparseEmbedd
     return SparseEmbedding(top_ids, top_scores)
 
 
+def from_dense(dense: torch.Tensor, capacity: int) -> SparseEmbedding:
+    """Top-``capacity`` sparsification of dense cluster-score rows [..., C]
+    (``lax.top_k``'s order, :func:`~the_algorithm_tpu_torch.ops.retrieval.top_k`);
+    entries not above 0 become PAD_ID / 0."""
+    from the_algorithm_tpu_torch.ops.retrieval import top_k
+
+    scores, ids = top_k(dense.to(torch.float32), capacity)
+    keep = scores > 0
+    return SparseEmbedding(torch.where(keep, ids.to(torch.int32), PAD_ID), torch.where(keep, scores, 0.0))
+
+
+def to_dense(emb: SparseEmbedding, num_clusters: int) -> torch.Tensor:
+    """Scatter to dense [..., num_clusters] rows (PAD slots dropped; a
+    repeated id accumulates, as JAX's ``.at[].add``)."""
+    valid = emb.valid_mask()
+    ids = torch.where(valid, emb.ids, 0).reshape(-1, emb.capacity).long()
+    vals = torch.where(valid, emb.scores, 0.0).reshape(-1, emb.capacity)
+    rows = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
+    out = torch.zeros(ids.shape[0], num_clusters, dtype=torch.float32, device=ids.device)
+    out.index_put_((rows, ids), vals, accumulate=True)
+    return out.reshape(*emb.ids.shape[:-1], num_clusters)
+
+
 def truncate(emb: SparseEmbedding, size: int) -> SparseEmbedding:
     """Keep top-``size`` by score (``SimClustersEmbedding.truncate:377``)."""
     return make(emb.ids, emb.scores, size)
@@ -75,6 +98,12 @@ def log_norm(emb: SparseEmbedding) -> torch.Tensor:
 def exp_scaled_norm(emb: SparseEmbedding, exponent: float = DEFAULT_EXPONENT) -> torch.Tensor:
     """``expScaledNormArray``: (Σ s²)^exponent."""
     return torch.pow(sum_of_squares(emb), exponent)
+
+
+def l2_normalize(emb: SparseEmbedding) -> SparseEmbedding:
+    norm = l2_norm(emb)
+    scale = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+    return SparseEmbedding(emb.ids, emb.scores * scale[..., None])
 
 
 # -- pairwise similarities (CosineSimilarityUtil.scala) -------------------------
@@ -180,3 +209,20 @@ def pairwise_matrix(fn, a: SparseEmbedding, b: SparseEmbedding) -> torch.Tensor:
     kinds, ``SimClustersEmbeddingPairScoreStore.build*Store``)."""
     return fn(SparseEmbedding(a.ids[..., :, None, :], a.scores[..., :, None, :]),
               SparseEmbedding(b.ids[..., None, :, :], b.scores[..., None, :, :]))
+
+
+# -- batched wrappers ----------------------------------------------------------------
+
+
+def batched(fn, *, in_axes=(0, 0)):
+    """The JAX package ``vmap``s a pairwise op over leading batch dims; the
+    port's ops broadcast over them, so an axis of 0 (batched) or None (one
+    embedding for the whole batch) needs no wrapper."""
+    if any(a not in (0, None) for a in in_axes):
+        raise ValueError(f"batched takes in_axes of 0 or None, got {in_axes}")
+    return fn
+
+
+def pairwise_cosine_matrix(a: SparseEmbedding, b: SparseEmbedding) -> torch.Tensor:
+    """[Na, Nb] cosine matrix between two batches (listwise feature block)."""
+    return pairwise_matrix(cosine, a, b)
