@@ -201,8 +201,29 @@ Phases, each printing its result on its own line:
     iteration count equal to the CPU's, the sum 1 within 1e-4); launches as
     derived; the k = 4 collapse against its plain version on the kernel
     tests' COLLAPSE_CASES, and the new collapse shapes timed;
+13e. offline_simclusters_2, after that one, in a child process
+    (``chip_smoke.py --offline-simclusters-2`` runs it alone): the
+    cluster→tweet index job at bench.py's SANN widths (C=145,408, M=400,
+    Kt=20, K=50) over ``sann_world.build_index_job_world`` (65,536 users,
+    1,048,576 tweets, 524,288 events: T·C far past 2³¹, where JAX's int32
+    keys wrap), held to the port on the CPU and its scores to float64 sums
+    by key (rtol 1e-5; the cuts up to near-ties); RMS with that InterestedIn
+    table behind a host cache and the SANN wrapper source over the generated
+    index for 32 users twice (launches from the cache's misses; each list
+    equal to ``ann.get_tweet_candidates`` on the RMS row; oracle parity ≥
+    0.99, ids tied at the cut counted); 4,096 pairs through every pair
+    algorithm and a blend, card against CPU, ``PairScoreStore`` and
+    ``weighted_sum_score`` beside them; over PR 16's offline world
+    ``evaluate_clusters``, ``top_eigenvectors`` (k=8, 50 iterations), the
+    clustering methods over its 4,096 producer embeddings (256 of them card
+    against CPU), entity embeddings from the job's events (entity = the
+    tweet's community); the pair model to AUC > 0.8; brute force and IVF
+    (262,144 x 128, 256 cells) under ``run_loadtest`` and HNSW on the host;
+    launches as derived on every path; the new kernel shapes timed;
 14. tweet_mixer, in a child process after the main process's last profiler
-    session (``chip_smoke.py --tweet-mixer`` runs it alone): tweet-mixer's
+    session (``chip_smoke.py --tweet-mixer [dir]`` runs it alone, the SANN
+    world loaded from the main process's saved files in ``dir`` or built
+    from its seed): tweet-mixer's
     Home product (20 pipelines) at bench.py's sizes
     (``data/tweet_mixer_world.py``) over the step-3 SANN world and the
     step-4 candidate world, built there from the same seeds, and TwHIN and
@@ -287,8 +308,10 @@ Phases, each printing its result on its own line:
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
 updates, the per-request For You product, the serving edge, the products
-phase's FRS, push, trust & safety, timeline ranker and actions, embedding
-training, the mesh layer's serving and training halves),
+phase's FRS, push, trust & safety, timeline ranker and actions, the write
+path, the offline jobs, the index job, RMS and the wrapper source, the
+score facade, evaluation, entity embeddings, ann_lib, embedding training,
+the mesh layer's serving and training halves),
 error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
@@ -373,6 +396,15 @@ from the_algorithm_tpu_torch.serving.product_front import BatchedTimelineFront, 
 from the_algorithm_tpu_torch.serving.server import InferenceServer
 from the_algorithm_tpu_torch.simclusters import ann
 from the_algorithm_tpu_torch.simclusters import tweet_embeddings as te
+from the_algorithm_tpu_torch import ann_lib
+from the_algorithm_tpu_torch.ann_lib import hnsw
+from the_algorithm_tpu_torch.features import representation_scorer as rsx
+from the_algorithm_tpu_torch.simclusters import candidate_source as csrc
+from the_algorithm_tpu_torch.simclusters import clustering, entity_embeddings, evaluation
+from the_algorithm_tpu_torch.simclusters import index_generation as igen
+from the_algorithm_tpu_torch.simclusters import representation_manager as rmgr
+from the_algorithm_tpu_torch.simclusters import score_facade as sfac
+from the_algorithm_tpu_torch.simclusters import tweet_similarity as tsim
 from the_algorithm_tpu_torch.data import datarecord, synthetic
 from the_algorithm_tpu_torch.models import light_ranker
 from the_algorithm_tpu_torch.ops import hashed_lr
@@ -3956,6 +3988,498 @@ def phase_offline_simclusters(dev, frs):
     return {"run_collapse": sum(got.values()), "row_gather": 0}, rows
 
 
+# offline SimClusters part 2 (a child process: ``--offline-simclusters-2``):
+# the index job over sann_world.INDEX_JOB (C = 145,408, M = 400, Kt = 20,
+# K = 50: bench.py's SANN widths; 65,536 users, 1,048,576 tweets, 524,288
+# events: counts cut), RMS and the wrapper source over its index, the score
+# facade, evaluation / clustering / entity embeddings over PR 16's offline
+# world, the pair model, ann_lib
+SC2_SEED = 17
+SC2_RTOL, SC2_ATOL = 1e-5, 1e-6  # card against CPU, and scores against float64 sums
+SC2_USERS = 32  # users the wrapper serves, twice (cache misses, then hits)
+SC2_PARITY = 0.99  # SANN oracle parity over the generated index (as phase_retrieval)
+SC2_PAIRS = 4096
+SC2_BLEND = (("PairEmbeddingDotProduct", 0.3), ("PairEmbeddingCosineSimilarity", 0.7))
+SC2_EIG = dict(k=8, iterations=50)
+SC2_EIG_RTOL, SC2_PROJ_ATOL = 1e-4, 1e-3  # eigenvalues and the projector, card against CPU
+SC2_CC_THRESHOLD = 0.5  # producers' cosine for connected components and Louvain
+SC2_CPU_PRODUCERS = 256  # producers also clustered on the CPU
+SC2_ENTITY_TOP = 50
+SC2_ENTITY_SHARE = 0.8  # an entity's (a community's) top clusters in its own community
+SC2_ANN = dict(n=1 << 18, dim=128, centers=512, cells=256, probes=8, queries=64, k=100)
+SC2_HNSW_N = 8192  # vectors HNSW builds from on the host (32,768 took 40.2 s on the card machine)
+SC2_HNSW_S = 15.0
+SC2_AUC = 0.8  # the JAX test's bound (tests/test_tweet_similarity.py)
+SC2_TSIM_STEPS = 200
+USER_II = rmgr.EmbeddingId(rmgr.EmbeddingKind.FAV_BASED_USER_INTERESTED_IN, rmgr.EntityKind.USER)
+
+
+def same_job_index(card, cpu, f64, args, what):
+    """The card's index against the CPU's: ids equal and scores within
+    SC2_RTOL, or, where ids differ, both held to float64 (``f64``: the
+    card's report) with no more entries apart than their near-ties. Returns
+    the entries apart."""
+    a, b = card.tweet_ids.cpu().numpy(), cpu.tweet_ids.numpy()
+    if np.array_equal(a, b):
+        require(np.allclose(card.scores.cpu().numpy(), cpu.scores.numpy(), rtol=SC2_RTOL, atol=0),
+                f"{what}: scores, card against CPU")
+        return 0
+    other = igen.compare_with_float64(cpu, *args, rtol=SC2_RTOL, device=card.tweet_ids.device)
+    require(other["far"] == 0, f"{what}: the CPU's index off float64 {other}")
+    keys = [np.sort((x.astype(np.int64) * x.shape[0] + np.arange(x.shape[0])[:, None])[x != PAD_ID]) for x in (a, b)]
+    apart = int(np.setxor1d(*keys).shape[0])
+    require(apart <= f64["near_tie"] + other["near_tie"], f"{what}: {apart} entries apart, card against CPU")
+    return apart
+
+
+def planted_vectors(n, dim, centers, seed):
+    """Clustered unit-scale vectors (the ann_lib tests' corpus, grown)."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(centers, dim)).astype(np.float32) * 3
+    return (c[rng.integers(0, centers, n)] + rng.normal(size=(n, dim)).astype(np.float32)).astype(np.float32)
+
+
+def sc2_index_job(dev):
+    """The index job on the card: launches, the card against the CPU, float64."""
+    t0 = time.perf_counter()
+    w = sann_world.build_index_job_world(sann_world.INDEX_JOB, SC2_SEED)
+    t_world = time.perf_counter() - t0
+    shape = sann_world.INDEX_JOB
+    cfg = igen.IndexGenerationConfig(num_clusters=shape.sann.C, num_tweets=shape.tweets,
+                                     tweets_per_cluster=shape.sann.M)
+    events = igen.EventLog(*map(torch.from_numpy, (w.user_rows, w.tweet_ids, w.event_type, w.timestamps)))
+    ii = tuple(torch.from_numpy(a) for a in (w.ii_ids, w.ii_scores))
+    ev_dev, ii_dev = events.to(dev), tuple(t.to(dev) for t in ii)
+    igen.generate_cluster_to_tweet_index(ev_dev, *ii_dev, cfg, w.now)  # warm
+    zero_counts()
+    t0 = time.perf_counter()
+    index = igen.generate_cluster_to_tweet_index(ev_dev, *ii_dev, cfg, w.now)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    n = counts()
+    require(n == {"run_collapse": 1, "row_gather": 1, "run_collapse_rows": 0},
+            f"index job: launches {n}, want 1 row_gather (the join) + 1 run_collapse (the sum by key)")
+    t0 = time.perf_counter()
+    cpu = igen.generate_cluster_to_tweet_index(events, *ii, cfg, w.now)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    args = (events, w.ii_ids, w.ii_scores, cfg, w.now)
+    f64 = igen.compare_with_float64(index, *args, rtol=SC2_RTOL, device=dev)
+    t_f64 = time.perf_counter() - t0
+    require(f64["unknown"] == 0 and f64["far"] == 0 and f64["out_of_order"] == 0
+            and f64["max_rel_err"] <= SC2_RTOL, f"index job: the card's index off float64: {f64}")
+    apart = same_job_index(index, cpu, f64, args, "index job")
+    E, K = w.user_rows.shape[0], w.ii_ids.shape[1]
+    print(f"offline_simclusters_2: {card_line()}; index job: {shape.users} users' InterestedIn rows (K={K} of "
+          f"C={shape.sann.C}, one community each), {shape.tweets} tweets, {E} events ({E * K} slots; T·C = "
+          f"{shape.tweets * shape.sann.C:.3e} ≥ 2³¹, where JAX's int32 keys wrap: fault 11a) built with numpy in "
+          f"{t_world:.1f} s (set-up); launches {n['row_gather']} row_gather + {n['run_collapse']} run_collapse; "
+          f"{f64['entries']} index entries held to float64 sums: max rel err {f64['max_rel_err']:.3g} (rtol "
+          f"{SC2_RTOL}), {f64['far']} entries apart from the float64 cuts, {f64['near_tie']} near-ties, "
+          f"{f64['out_of_order']} out of order ({t_f64:.1f} s: numpy sums, sorts on the card); the CPU's index {apart} entries apart; "
+          f"the job {t_card * 1e3:.1f} ms on the card, {t_cpu:.1f} s on the CPU (host clock after a synchronize)")
+    return w, cfg, index, ev_dev, ii_dev, {"index_job": dict(n)}
+
+
+def sc2_wrapper(dev, w, index, ii_dev):
+    """RMS holding the InterestedIn table (cached) and the wrapper source
+    over the generated index: launches from the cache's own counters, the
+    candidates against the SANN path, oracle parity."""
+    shape = sann_world.INDEX_JOB.sann
+    stats = StatsReceiver()
+    store = rmgr.CachedEmbeddingStore(rmgr.TableEmbeddingStore(*ii_dev, {u: u for u in range(w.ii_ids.shape[0])}),
+                                      stats=stats)
+    rms = rmgr.RepresentationManager()
+    rms.register(USER_II, store)
+    ann_cfg = ann.SimClustersANNConfig(max_scan_clusters=shape.N, max_top_tweets_per_cluster=shape.M,
+                                       max_num_results=shape.X)
+    src = csrc.SimClustersANNWrapperCandidateSource(rms, index, csrc.SimClustersANNWrapperConfig(
+        embedding=USER_II, ann_config=ann_cfg))
+    users = np.random.default_rng(SC2_SEED).choice(w.ii_ids.shape[0], SC2_USERS, replace=False)
+    zero_counts()
+    t0 = time.perf_counter()
+    served = [src.get({"user_id": int(u)}, Params()) for u in users]
+    t_miss = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = [src.get({"user_id": int(u)}, Params()) for u in users]
+    t_hit = time.perf_counter() - t0
+    n = counts()
+    c = stats.counters()
+    gets = 2 * SC2_USERS
+    derived = {"run_collapse": gets, "row_gather": gets + c["rms_cache/misses"], "run_collapse_rows": 0}
+    require(c["rms_cache/misses"] == SC2_USERS and c["rms_cache/hits"] == SC2_USERS and n == derived,
+            f"wrapper: launches {n}, cache {c}; want {derived} (a get: the SANN fetch and dedup, a miss's multiget)")
+    require(all(len(a) == shape.X for a in served) and served == again, "wrapper: lists short or unstable")
+    index_np = tuple(t.cpu().numpy() for t in index)
+    k = min(K_RECALL, shape.X)
+    hits = strict = total = 0
+    for u, got in zip(users, served):
+        emb = SparseEmbedding(torch.from_numpy(w.ii_ids[u]).to(dev), torch.from_numpy(w.ii_scores[u]).to(dev))
+        ids, scores = ann.get_tweet_candidates(index, csrc.rank_clusters(emb, shape.N), ann_cfg)
+        require([c.id for c in got] == ids.cpu().tolist() and
+                np.array_equal([c.score for c in got], scores.cpu().numpy().astype(np.float64)),
+                f"wrapper: user {u}'s candidates differ from ann.get_tweet_candidates")
+        ranked = retrieval.approximate_cosine_similarity_reference(
+            *index_np, w.ii_ids[u], w.ii_scores[u], max_results=len(got) * shape.N, algorithm=ScoringAlgorithm.COSINE)
+        want, cut, score64 = {t for t, _ in ranked[:k]}, ranked[k - 1][1], dict(ranked)
+        # a tweet engaged by one user scores as every other tweet of that
+        # user's (cosine ignores the event's weight): ids tied at the cut
+        # within f32 rounding count as the oracle's
+        tied = {c.id for c in got[:k] if abs(score64.get(c.id, -np.inf) - cut) <= 4e-7 * abs(cut)}
+        hits += len(({c.id for c in got[:k]} & want) | tied)
+        strict += len({c.id for c in got[:k]} & want)
+        total += len(want)
+    parity = hits / max(total, 1)
+    require(parity >= SC2_PARITY, f"wrapper: SANN oracle parity {parity} < {SC2_PARITY} (strict {strict / total})")
+    print(f"offline_simclusters_2: {card_line()}; RMS (the [{w.ii_ids.shape[0]}, {w.ii_ids.shape[1]}] InterestedIn "
+          f"table, cached) and the SANN wrapper source over the generated index (N={shape.N}, M={shape.M}, "
+          f"X={shape.X}): {SC2_USERS} users twice, cache {c['rms_cache/misses']} misses / {c['rms_cache/hits']} "
+          f"hits, launches {n} as derived; every list equal to ann.get_tweet_candidates on the RMS row; oracle "
+          f"parity {parity:.4f} at {k} over {SC2_USERS} users, ids tied at the cut counted ({strict / total:.4f} "
+          f"without); {t_miss / SC2_USERS * 1e3:.2f} ms a request "
+          f"on a miss, {t_hit / SC2_USERS * 1e3:.2f} on a hit (host clock, not a benchmark)")
+    return {"rms_wrapper": dict(n)}, src
+
+
+def sc2_score_facade(dev, w, ii_dev):
+    """4,096 user pairs through every pair algorithm and a blend, card
+    against CPU, PairScoreStore beside the facade."""
+    U = w.ii_ids.shape[0]
+    rng = np.random.default_rng(SC2_SEED + 1)
+    a = rng.integers(0, U, SC2_PAIRS)
+    by_comm = np.argsort(w.user_comm, kind="stable")  # half the pairs within a community, half across
+    size = np.bincount(w.user_comm, minlength=int(w.user_comm.max()) + 1)
+    start = np.cumsum(size) - size
+    peer = by_comm[start[w.user_comm[a]] + (rng.random(SC2_PAIRS) * size[w.user_comm[a]]).astype(np.int64)]
+    b = np.where(rng.random(SC2_PAIRS) < 0.5, peer, rng.integers(0, U, SC2_PAIRS))
+    rows = {u: u for u in range(U)}
+    facades = []
+    for d, tables in ((dev, ii_dev), (torch.device("cpu"), (torch.from_numpy(w.ii_ids), torch.from_numpy(w.ii_scores)))):
+        rms = rmgr.RepresentationManager()
+        rms.register(USER_II, rmgr.TableEmbeddingStore(*tables, rows))
+        f = sfac.ScoreFacadeStore(rms)
+        f.register_aggregate(sfac.WeightedSumSpec("blend", SC2_BLEND))
+        facades.append(f)
+    zero_counts()
+    t0 = time.perf_counter()
+    card = {alg: facades[0].pair_scores(alg, USER_II, a, USER_II, b) for alg in sfac.PAIR_ALGORITHMS}
+    card["blend"] = facades[0].aggregate_scores("blend", USER_II, a, USER_II, b)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    n = counts()
+    derived = {"run_collapse": 0, "row_gather": 2 * (len(sfac.PAIR_ALGORITHMS) + 1), "run_collapse_rows": 0}
+    require(n == derived, f"score facade: launches {n}, want {derived} (two multigets a call)")
+    worst = 0.0
+    for alg, got in card.items():
+        want = (facades[1].aggregate_scores("blend", USER_II, a, USER_II, b) if alg == "blend"
+                else facades[1].pair_scores(alg, USER_II, a, USER_II, b))
+        require(bool(torch.isfinite(got).all()) and torch.allclose(got.cpu(), want, rtol=SC2_RTOL, atol=SC2_ATOL),
+                f"score facade: {alg}, card against CPU")
+        worst = max(worst, float((got.cpu() - want).abs().max()))
+    ea, eb = facades[0].rms.multiget(USER_II, a), facades[0].rms.multiget(USER_II, b)
+    kinds = {"dot": "PairEmbeddingDotProduct", "cosine": "PairEmbeddingCosineSimilarity",
+             "log_cosine": "PairEmbeddingLogCosineSimilarity", "exp_cosine": "PairEmbeddingExpScaledCosineSimilarity",
+             "jaccard": "PairEmbeddingJaccardSimilarity", "euclidean": "PairEmbeddingEuclideanDistance",
+             "manhattan": "PairEmbeddingManhattanDistance"}
+    for kind, alg in kinds.items():
+        require(torch.equal(rsx.PairScoreStore(kind)(ea, eb), card[alg]), f"PairScoreStore {kind} against the facade")
+    blend = rsx.weighted_sum_score({alg: card[alg] for alg, _ in SC2_BLEND}, dict(SC2_BLEND))
+    require(torch.allclose(blend, card["blend"], rtol=SC2_RTOL, atol=SC2_ATOL), "weighted_sum_score against the blend")
+    same = float((card["PairEmbeddingCosineSimilarity"] > 0).float().mean())
+    print(f"offline_simclusters_2: {card_line()}; score facade: {SC2_PAIRS} user pairs x {len(sfac.PAIR_ALGORITHMS)} "
+          f"algorithms and a blend, launches {n} as derived, card against CPU within rtol {SC2_RTOL} / atol "
+          f"{SC2_ATOL} (max |diff| {worst:.3g}); PairScoreStore's 7 kinds equal to the facade, weighted_sum_score to "
+          f"the blend; {same:.3f} of pairs share a cluster; {t_card * 1e3:.1f} ms (host clock)")
+    return {"score_facade": dict(n)}, (a, b)
+
+
+def offline_world(dev):
+    """PR 16's offline world (OS_GRAPH): the sims graph, KnownFor,
+    InterestedIn and the producer embeddings, on the card."""
+    world = synthetic.community_graph(synthetic.CommunityGraphConfig(**OS_GRAPH))
+    P = OS_GRAPH["num_producers"]
+    graph = sims_graph.symmetrize(sims_graph.cosine_similarity_graph(
+        sims_graph.follow_matrix_from_adjacency(torch.from_numpy(world.producer_ids).to(dev), P), top_k=OS_SIMS_TOP))
+    init = known_for.initialize_random(torch.Generator(device=dev).manual_seed(OS_GRAPH["seed"]), P, OS_C)
+    kf = known_for.iterate(graph, init, known_for.KnownForParams(num_clusters=OS_C), OS_ITERS)
+    ff = interested_in.FollowFavGraph(*(torch.from_numpy(np.asarray(a)).to(dev) for a in (
+        world.producer_ids, world.followed, world.fav_score, world.log_fav_score)))
+    ii = interested_in.interested_in_from_known_for(ff, kf, interested_in.InterestedInParams(
+        num_clusters=OS_C, max_clusters_per_user=OS_MAX_CLUSTERS))
+    emb = producer_embeddings.producer_embeddings_from_interested_in(
+        ff.producer_ids, ff.fav_score, ii.ids, ii.fav_cluster_normalized, num_producers=P, num_clusters=OS_C,
+        top_k_clusters=OS_PRODUCER_K[0], top_k_producers=OS_PRODUCER_K[1])
+    return world, graph, kf, emb.by_producer
+
+
+def sc2_evaluation(dev):
+    """evaluate_clusters and top_eigenvectors over the offline world's
+    KnownFor and sims graph; the clustering methods over its producer
+    embeddings: card against CPU."""
+    t0 = time.perf_counter()
+    world, graph, kf, prod = offline_world(dev)
+    torch.cuda.synchronize()
+    t_world = time.perf_counter() - t0
+    graph_cpu, kf_cpu = graph.to("cpu"), known_for.KnownFor(kf.cluster.cpu(), kf.score.cpu())
+    zero_counts()
+    q = evaluation.evaluate_clusters(graph, kf, OS_C)
+    n_eval = counts()
+    require(n_eval["run_collapse"] == 1 and n_eval["row_gather"] == 0, f"evaluate_clusters: launches {n_eval}")
+    q_cpu = evaluation.evaluate_clusters(graph_cpu, kf_cpu, OS_C)
+    for g, x, name in zip(q, q_cpu, q._fields):
+        require(torch.allclose(g.cpu(), x, rtol=SC2_RTOL, atol=SC2_ATOL), f"evaluate_clusters {name}, card against CPU")
+    zero_counts()
+    t0 = time.perf_counter()
+    vals, vecs = evaluation.top_eigenvectors(graph, **SC2_EIG)
+    torch.cuda.synchronize()
+    t_eig = time.perf_counter() - t0
+    n_eig = counts()
+    require(n_eig["row_gather"] == SC2_EIG["iterations"] + 1 and n_eig["run_collapse"] == 0,
+            f"top_eigenvectors: launches {n_eig}, want {SC2_EIG['iterations'] + 1} row_gather (a matvec each)")
+    vals_cpu, vecs_cpu = evaluation.top_eigenvectors(graph_cpu, **SC2_EIG)
+    proj_err = float(((vecs @ vecs.T).cpu() - vecs_cpu @ vecs_cpu.T).abs().max())
+    require(torch.allclose(vals.cpu(), vals_cpu, rtol=SC2_EIG_RTOL) and proj_err <= SC2_PROJ_ATOL,
+            f"top_eigenvectors: card against CPU (eigenvalues {vals.tolist()} / {vals_cpu.tolist()}, projector "
+            f"{proj_err:.3g})")
+    resid = float((torch.einsum("ud,udk->uk", torch.where(graph.nbr_ids != PAD_ID, graph.nbr_weights, 0.0),
+                                vecs[gather.jax_rows(torch.where(graph.nbr_ids != PAD_ID, graph.nbr_ids, 0),
+                                                     vecs.shape[0])]) - vecs * vals).norm(dim=0).max())
+
+    # clustering over the producer embeddings (its users' neighbourhoods, N ≤ a few thousand)
+    t0 = time.perf_counter()
+    sim = clustering.similarity_matrix(prod)
+    labels = clustering.connected_components(sim, SC2_CC_THRESHOLD)
+    torch.cuda.synchronize()
+    t_cc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    louv = clustering.louvain(sim.cpu().numpy().astype(np.float64), SC2_CC_THRESHOLD)
+    t_louv = time.perf_counter() - t0
+    medoid = clustering.medoid_representative(prod, labels)
+    pids = world.producer_ids[world.producer_ids != PAD_ID]
+    followers = torch.from_numpy(np.bincount(pids, minlength=prod.ids.shape[0]).astype(np.float32))
+    top = clustering.max_weight_representative(labels, followers.to(dev))
+    comps = torch.unique(labels)
+    require(bool(torch.isin(comps, labels[medoid]).all() and torch.isin(comps, labels[top]).all()),
+            "clustering: a component without a medoid or a most-followed member")
+    require(torch.equal(top.cpu(), clustering.max_weight_representative(labels.cpu(), followers)),
+            "clustering: most-followed members, card against CPU")
+    sub = SparseEmbedding(prod.ids[:SC2_CPU_PRODUCERS].cpu(), prod.scores[:SC2_CPU_PRODUCERS].cpu())
+    sub_dev = SparseEmbedding(prod.ids[:SC2_CPU_PRODUCERS], prod.scores[:SC2_CPU_PRODUCERS])
+    sim_sub, sim_sub_cpu = clustering.similarity_matrix(sub_dev), clustering.similarity_matrix(sub)
+    require(torch.allclose(sim_sub.cpu(), sim_sub_cpu, rtol=SC2_RTOL, atol=SC2_ATOL), "clustering: similarity matrix")
+    lab_sub, lab_sub_cpu = (clustering.connected_components(x, SC2_CC_THRESHOLD) for x in (sim_sub, sim_sub_cpu))
+    require(torch.equal(lab_sub.cpu(), lab_sub_cpu), "clustering: connected components, card against CPU")
+    require(np.array_equal(clustering.louvain(sim_sub.cpu().numpy().astype(np.float64), SC2_CC_THRESHOLD),
+                           clustering.louvain(sim_sub_cpu.numpy().astype(np.float64), SC2_CC_THRESHOLD)),
+            "clustering: Louvain over the card's and the CPU's similarities")
+    # medoids: equal but where a member's in-cluster similarity sum ties its
+    # cluster's best within rounding (near-duplicate embeddings)
+    apart = clustering.medoid_representative(sub_dev, lab_sub).cpu() != clustering.medoid_representative(sub, lab_sub_cpu)
+    score = torch.where(lab_sub_cpu[:, None] == lab_sub_cpu[None, :], sim_sub_cpu, 0.0).sum(1)
+    best = clustering._best_of_cluster(lab_sub_cpu, score)
+    require(bool((apart <= ((best - score).abs() <= SC2_RTOL * best.abs() + SC2_ATOL)).all()),
+            "clustering: medoids, card against CPU, apart away from a tie")
+    largest = clustering.largest_dimension(prod)
+    print(f"offline_simclusters_2: {card_line()}; evaluation over PR 16's offline world (built again in "
+          f"{t_world:.1f} s: sims graph, KnownFor C={OS_C}, InterestedIn, producer embeddings): evaluate_clusters "
+          f"(1 run_collapse, k=3) within rtol {SC2_RTOL} of the CPU, mean in-cluster weight share "
+          f"{float(q.in_cluster_weight_fraction[q.sizes > 0].mean()):.3f}; top_eigenvectors k={SC2_EIG['k']}, "
+          f"{SC2_EIG['iterations']} iterations ({n_eig['row_gather']} row_gather launches), eigenvalues "
+          f"{[round(v, 4) for v in vals.tolist()]} within rtol {SC2_EIG_RTOL} of the CPU, projector within "
+          f"{proj_err:.2g}, residual max ‖Aq − λq‖ {resid:.3g}, {t_eig * 1e3:.1f} ms; clustering of the "
+          f"{prod.ids.shape[0]} producer embeddings (K={prod.ids.shape[1]}): {comps.numel()} components at "
+          f"cosine ≥ {SC2_CC_THRESHOLD} ({t_cc * 1e3:.1f} ms with the similarity matrix), Louvain "
+          f"{int(louv.max()) + 1} communities in {t_louv:.1f} s (host), {int(medoid.sum())} medoids, "
+          f"{torch.unique(largest).numel()} largest-dimension clusters; the first {SC2_CPU_PRODUCERS} producers "
+          f"card against CPU (similarities, components, Louvain; medoids {int(apart.sum())} apart at near-ties)")
+    return {"evaluation": {k: n_eval[k] + n_eig[k] for k in n_eval}}, graph, kf
+
+
+def sc2_entity(dev, w, ev_dev, ii_dev):
+    """Entity embeddings from the index job's events: entity = the engaged
+    tweet's community (512 × 145,408 dense slots, 298 MB)."""
+    shape = sann_world.INDEX_JOB
+    entity = torch.from_numpy(w.tweet_comm[w.tweet_ids].astype(np.int32))
+    weights = torch.tensor((1.0, 1.0, 1.0, 0.5, 0.5))[ev_dev.event_type.cpu().long()]
+    n_ent, C = shape.sann.n_comm, shape.sann.C
+    require(n_ent * C < 2**31, "entity embeddings: the dense array passes int32")
+    interests = SparseEmbedding(*ii_dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    emb = entity_embeddings.entity_embeddings_from_engagements(
+        entity.to(dev), ev_dev.user_rows, weights.to(dev), interests, num_entities=n_ent, num_clusters=C,
+        top_k=SC2_ENTITY_TOP)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    n = counts()
+    require(n == {"run_collapse": 1, "row_gather": 1, "run_collapse_rows": 0},
+            f"entity embeddings: launches {n}, want 1 row_gather (the join) + 1 run_collapse (the scatter)")
+    cpu = entity_embeddings.entity_embeddings_from_engagements(
+        entity, ev_dev.user_rows.cpu(), weights, SparseEmbedding(*(t.cpu() for t in ii_dev)), num_entities=n_ent,
+        num_clusters=C, top_k=SC2_ENTITY_TOP)
+    moved = check_same_ranking(emb.ids.cpu().numpy(), emb.scores.cpu().numpy(), cpu.ids.numpy(), cpu.scores.numpy(),
+                               SC2_RTOL, SC2_ATOL, "entity embeddings")
+    comm_clusters = np.random.default_rng(0).permutation(C).reshape(n_ent, shape.sann.cpc)
+    ids = emb.ids.cpu().numpy()
+    share = float(np.mean([np.isin(ids[e][ids[e] != PAD_ID], comm_clusters[e]).mean() for e in range(n_ent)]))
+    require(share >= SC2_ENTITY_SHARE, f"entity embeddings: {share:.3f} of top clusters in the entity's community")
+    print(f"offline_simclusters_2: {card_line()}; entity embeddings from the index job's events (entity = the "
+          f"tweet's community: [{n_ent}, {C}] dense, {n_ent * C * 4 / 1e6:.0f} MB): launches {n}, top-"
+          f"{SC2_ENTITY_TOP} the CPU's ({moved} ranks apart among near-ties), {share:.3f} of them in the entity's "
+          f"own community, {t_card * 1e3:.1f} ms (host clock)")
+    return {"entity_embeddings": dict(n)}
+
+
+def sc2_tweet_similarity(dev):
+    """The pair model trained on the card on the JAX test's world to its AUC."""
+    rng = np.random.default_rng(0)
+    n_tweets, K = 120, 8
+    comm = rng.integers(0, 4, n_tweets)
+    t_ids = np.stack([rng.choice(np.arange(c * 16, (c + 1) * 16), K, replace=False) for c in comm]).astype(np.int32)
+    t_scores = rng.uniform(0.5, 1, (n_tweets, K)).astype(np.float32)
+    eu, et, ets = [], [], []
+    for u in range(150):
+        c = rng.integers(0, 4)
+        for i, tw in enumerate(rng.choice(np.flatnonzero(comm == c), 4, replace=False)):
+            eu.append(u)
+            et.append(int(tw))
+            ets.append(u * 10_000 + i)
+    ds = tsim.collect_training_pairs(np.asarray(eu), np.asarray(et), np.asarray(ets), coengagement_window_s=100)
+    side = [SparseEmbedding(torch.from_numpy(t_ids[x]).to(dev), torch.from_numpy(t_scores[x]).to(dev))
+            for x in (ds.tweet_a, ds.tweet_b)]
+    feats = tsim.pair_features_batch(*side)
+    labels = torch.from_numpy(ds.label).to(dev)
+    model = tsim.TweetSimilarityModel(device=dev)
+    opt = optimizers.Adam(model.parameters(), lr=1e-2)
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(SC2_TSIM_STEPS):
+        opt.zero_grad()
+        loss = tsim.loss_fn(model, {"features": feats, "label": labels})[0]
+        loss.backward()
+        opt.step()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    n = counts()
+    require(sum(n.values()) == 0, f"the pair model launched a hand kernel: {n}")
+    auc = float(metrics.auc(model(feats).detach(), labels))
+    require(auc > SC2_AUC, f"the pair model's AUC {auc:.3f} ≤ {SC2_AUC}")
+    print(f"offline_simclusters_2: {card_line()}; tweet-similarity pair model: {len(ds.label)} pairs from the JAX "
+          f"test's world, {SC2_TSIM_STEPS} Adam steps on the card in {t_fit:.2f} s, AUC {auc:.3f} (> {SC2_AUC}), "
+          f"final loss {loss.item():.4f}, no hand kernel (no table)")
+
+
+def sc2_ann_lib(dev):
+    """Brute force and IVF on the card under run_loadtest; HNSW on the host."""
+    a = SC2_ANN
+    x = planted_vectors(a["n"], a["dim"], a["centers"], SC2_SEED)
+    ids = np.arange(a["n"], dtype=np.int64) + 1_000_000
+    rng = np.random.default_rng(SC2_SEED + 2)
+    queries = x[rng.choice(a["n"], a["queries"], replace=False)] + 0.1 * rng.normal(
+        size=(a["queries"], a["dim"])).astype(np.float32)
+    brute = ann_lib.BruteForceIndex(a["dim"], device=dev)
+    brute.append(ids, x)
+    ivf = ann_lib.ClusteredScanIndex(a["dim"], n_clusters=a["cells"], n_probes=a["probes"], device=dev)
+    ivf.append(ids, x)
+    t0 = time.perf_counter()
+    ivf.build()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ivf.query(queries[:2], a["k"])  # warm
+    brute.query(queries[:2], a["k"])
+    zero_counts()
+    res_ivf = ann_lib.run_loadtest(ivf, queries, a["k"], truth_index=brute)
+    n = counts()
+    require(n == {"run_collapse": 0, "row_gather": a["queries"], "run_collapse_rows": 0},
+            f"IVF: launches {n}, want one row_gather (the member vectors) a query")
+    res_bf = ann_lib.run_loadtest(brute, queries, a["k"], truth_index=brute)
+    require(res_bf.overall_recall == 1.0, f"brute force against itself: recall {res_bf.overall_recall}")
+    cpu = ann_lib.ClusteredScanIndex(a["dim"], n_clusters=a["cells"], n_probes=a["probes"], device="cpu")
+    cpu.append(ids, x)
+    cpu._load(ivf._centroids.cpu(), ivf._members.cpu().numpy())  # the card's cells
+    got, want = ivf.query(queries[:8], a["k"]), cpu.query(queries[:8], a["k"])
+    require(np.array_equal(got[0], want[0]) and np.allclose(got[1], want[1], rtol=1e-4, atol=1e-4),
+            "IVF: card against CPU on the same cells")
+    cap = ivf._members.shape[1]
+    sub = x[:SC2_HNSW_N]
+    h = hnsw.HnswIndex(a["dim"], ef=100)
+    t0 = time.perf_counter()
+    h.append(ids[:SC2_HNSW_N], sub)
+    t_hnsw = time.perf_counter() - t0
+    require(t_hnsw <= SC2_HNSW_S, f"HNSW build took {t_hnsw:.1f} s")
+    small = ann_lib.BruteForceIndex(a["dim"], device=dev)
+    small.append(ids[:SC2_HNSW_N], sub)
+    res_h = ann_lib.run_loadtest(h, queries, a["k"], truth_index=small)
+    print(f"offline_simclusters_2: {card_line()}; ann_lib over {a['n']} x {a['dim']} f32 ({a['centers']} planted "
+          f"centres), {a['queries']} queries, k={a['k']}: IVF {a['cells']} cells (k-means on the card "
+          f"{t_build:.2f} s, the fullest {cap}), {a['probes']} probes: recall@1 {res_ivf.recall_at_1:.4f}, @10 "
+          f"{res_ivf.recall_at_10:.4f}, overall {res_ivf.overall_recall:.4f}, p50 {res_ivf.p50_latency_us:.0f} µs, "
+          f"launches {n} (one row_gather a query); brute force overall {res_bf.overall_recall:.4f}, p50 "
+          f"{res_bf.p50_latency_us:.0f} µs; HNSW on the host over the first {SC2_HNSW_N} (built in {t_hnsw:.1f} "
+          f"s, ef=100): recall@10 {res_h.recall_at_10:.4f}, overall {res_h.overall_recall:.4f}, p50 "
+          f"{res_h.p50_latency_us:.0f} µs (latencies host clock, whole query calls)")
+    return {"ann_lib": dict(n)}, ivf, queries
+
+
+def sc2_kernel_times(dev, w, cfg, ev_dev, ii_dev, src, graph, kf, ivf, queries, pairs):
+    """The new launch shapes against their plain versions (device time over
+    warm calls), each kernel's inputs recorded from a path call."""
+    rows = {}
+    job = lambda: igen.generate_cluster_to_tweet_index(ev_dev, *ii_dev, cfg, w.now)  # noqa: E731
+    seen = recorded(igen, "run_collapse_sorted", job)
+    rows["index job sum by key"] = time_collapse(seen[0], "the index job's dense run indices")
+    seen = recorded(igen, "row_gather", job)
+    ids, *tables = seen[0]
+    rows["index job join"] = time_gather(ids, tuple(tables), f"the InterestedIn join: {ids.numel()} events x 2 x "
+                                                             f"{tables[0].shape[1] * 4} B (word kernel)")
+    store = rmgr.TableEmbeddingStore(*ii_dev, {u: u for u in range(w.ii_ids.shape[0])})
+    seen = recorded(rmgr, "row_gather", lambda: store.multiget(np.asarray([5])))
+    rows["RMS multiget"] = time_gather(seen[0][0], tuple(seen[0][1:]), "an RMS miss: 1 x 2 x 200 B (word kernel)")
+    seen = recorded(rmgr, "row_gather", lambda: store.multiget(pairs[0]))
+    rows["score facade multiget"] = time_gather(seen[0][0], tuple(seen[0][1:]),
+                                                f"the score facade: {SC2_PAIRS} x 2 x 200 B (word kernel)")
+    seen = recorded(evaluation, "row_gather", lambda: evaluation.top_eigenvectors(graph, k=SC2_EIG["k"], iterations=1))
+    ids, v = seen[0]
+    rows["eigen matvec"] = time_gather(ids, (v,), f"the eigen matvec: {ids.numel()} rows x {v.shape[1] * 4} B")
+    seen = recorded(evaluation.segment, "run_collapse_sorted", lambda: evaluation.evaluate_clusters(graph, kf, OS_C))
+    rows["evaluate_clusters"] = time_collapse(seen[0], "evaluate_clusters' per-cluster sums", copy_yardstick=False)
+    seen = recorded(ann_lib.index, "row_gather", lambda: ivf.query(queries[:1], SC2_ANN["k"]))
+    ids, vec = seen[0]
+    rows["IVF members"] = time_gather(ids, (vec,), f"the IVF member vectors: {ids.numel()} x {vec.shape[1] * 4} B")
+    user = {"user_id": 5}
+    seen = recorded(retrieval, "row_gather", lambda: src.get(user, Params()))
+    ids, *tables = seen[0]
+    rows["wrapper SANN rows"] = time_gather(ids, tuple(tables), f"the wrapper's SANN rows: {ids.numel()} x 3 x "
+                                                                f"{tables[0].shape[1] * 4} B")
+    seen = recorded(retrieval, "run_collapse_sorted", lambda: src.get(user, Params()))
+    rows["wrapper SANN dedup"] = time_collapse(seen[0], "the wrapper's SANN entries", copy_yardstick=False)
+    print(f"offline_simclusters_2: new kernel shapes (device time; {card_line()}): " + "; ".join(
+        f"{k} {v['device_ms']:.4f} ms (plain {v['plain_device_ms']:.4f}, bound {v['bound_ms']:.4f} ms"
+        + (f", copy_ {v['copy_ms']:.4f}" if v.get("copy_ms") else "") + ")" for k, v in rows.items()))
+    return rows
+
+
+def phase_offline_part_two(dev):
+    """``chip_smoke.py --offline-simclusters-2``: the slice's paths on the
+    card (see SC2_*), then the new kernel shapes timed. Returns the launches
+    by path."""
+    t_phase = time.perf_counter()
+    w, cfg, index, ev_dev, ii_dev, by_path = sc2_index_job(dev)
+    wrapper, src = sc2_wrapper(dev, w, index, ii_dev)
+    by_path.update(wrapper)
+    facade, pairs = sc2_score_facade(dev, w, ii_dev)
+    by_path.update(facade)
+    evals, graph, kf = sc2_evaluation(dev)
+    by_path.update(evals)
+    by_path.update(sc2_entity(dev, w, ev_dev, ii_dev))
+    sc2_tweet_similarity(dev)
+    ann_launches, ivf, queries = sc2_ann_lib(dev)
+    by_path.update(ann_launches)
+    sc2_kernel_times(dev, w, cfg, ev_dev, ii_dev, src, graph, kf, ivf, queries, pairs)
+    print(f"offline_simclusters_2: {card_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {path: {k: v for k, v in n.items() if k != "run_collapse_rows"} for path, n in by_path.items()}
+
+
 # the exact retrieval tier as bench.py serves it (bench.py:616-694): the turbo
 # full-corpus scan for a sticky 80% of users, the SANN rows for the rest
 TIER_AVAILABILITY = 8000  # of 10,000: the decider's dial
@@ -4970,7 +5494,7 @@ def check_blend(got, want, moved, what):
             require(abs(a.score - b.score) <= EB_ATOL + EB_RTOL * abs(b.score), f"{what}: id {a.id} scored apart")
 
 
-def phase_tweet_mixer(dev):
+def phase_tweet_mixer(dev, sann=None):
     """tweet-mixer's Home product at bench.py's sizes on the card: the world
     (over the SANN and candidate worlds of steps 3-4, built from the same
     seeds), each of the 20 pipelines called directly, one counted request,
@@ -4978,7 +5502,7 @@ def phase_tweet_mixer(dev):
     clock. Returns the counted launches and the world the profile at the
     end of the run takes."""
     t0 = time.perf_counter()
-    tw = tweet_mixer_world.build(TM_SHAPE, device=dev)
+    tw = tweet_mixer_world.build(TM_SHAPE, device=dev, sann=sann)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     items = tweet_mixer_world.export_item_table(tw.two_tower)
@@ -5199,10 +5723,11 @@ def time_home_graph_kernels(tw, q):
     time_collapse(retrieval.sort_by_id(flat, ones), f"Home {name}'s sorted entries", copy_yardstick=False)
 
 
-def phase_tweet_mixer_alone(dev):
-    """The tweet_mixer phase in its own process (``--tweet-mixer``), then its
+def phase_tweet_mixer_alone(dev, root=None):
+    """The tweet_mixer phase in its own process (``--tweet-mixer [dir]``:
+    the SANN world from :func:`save_world`'s files, else built), then its
     profile and kernel timings. Returns the counted request's launches."""
-    launches, tw = phase_tweet_mixer(dev)
+    launches, tw = phase_tweet_mixer(dev, saved_sann(root, dev))
     phase_tweet_mixer_times(tw)
     return launches
 
@@ -5624,11 +6149,11 @@ def wals_card_against_cpu(dev):
           f"({moved} ranks hold another id, within near-ties)")
 
 
-def serve_trained(dev, tt, th, planted):
+def serve_trained(dev, tt, th, planted, sann=None):
     """The trained tables served through tweet-mixer's Home dense engines:
     a served user's planted items in the dense pipelines' top-200."""
     t0 = time.perf_counter()
-    tw = tweet_mixer_world.build(TM_SHAPE, device=dev).with_models(th, tt)
+    tw = tweet_mixer_world.build(TM_SHAPE, device=dev, sann=sann).with_models(th, tt)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     q = tw.queries[0]
@@ -5671,7 +6196,7 @@ def home_copy_yardsticks(dev):
     print("kernel run_collapse: copy_ of the same bytes at tweet-mixer's Home shapes (device time): " + "; ".join(out))
 
 
-def phase_embedding_training(dev):
+def phase_embedding_training(dev, root=None):
     """Embedding-table training through the D-wide collapse at full width,
     its kernel at this path's shapes, the card against the CPU, RealGraph
     and WALS, and the trained tables served back through Home. Returns the
@@ -5701,7 +6226,7 @@ def phase_embedding_training(dev):
     realgraph_card_against_cpu(dev)
     wals_card_against_cpu(dev)
     torch.cuda.empty_cache()
-    serve_trained(dev, tt, th, planted)
+    serve_trained(dev, tt, th, planted, saved_sann(root, dev))
     return {"launches": launches, "run_collapse_rows": timings[f"two-tower item table ([{TM_SHAPE.num_items}, "
                                                                f"{TM_SHAPE.embed_dim}])"]}
 
@@ -6036,10 +6561,12 @@ def mesh_search(mesh, cand, tables, cols):
 
 
 def save_world(world, root):
-    """The SANN world's index and queries as .npy files in ``root``, for the
-    mesh child and its E=4 ranks."""
-    shape, _, _, index_np, q_ids, q_scores, _, _ = world
-    for name, a in zip(("tweet_ids", "scores", "timestamps", "q_ids", "q_scores"), (*index_np, q_ids, q_scores)):
+    """The SANN world's corpus, index and queries as .npy files in ``root``,
+    for the tweet-mixer, embedding-training and mesh children and the mesh
+    child's E=4 ranks."""
+    shape, corpus_ids, corpus_scores, index_np, q_ids, q_scores, _, _ = world
+    for name, a in zip(("tweet_ids", "scores", "timestamps", "q_ids", "q_scores", "corpus_ids", "corpus_scores"),
+                       (*index_np, q_ids, q_scores, corpus_ids, corpus_scores)):
         np.save(os.path.join(root, f"{name}.npy"), a)
     with open(os.path.join(root, "shape.json"), "w") as f:
         json.dump(dataclasses.asdict(shape), f)
@@ -6058,6 +6585,18 @@ def load_world(root, dev):
     index = ClusterTweetIndex(*(torch.from_numpy(np.asarray(a)).to(dev) for a in index_np))
     sources = SparseEmbedding(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_scores).to(dev))
     return shape, None, None, index_np, q_ids, q_scores, index, sources
+
+
+def saved_sann(root, dev):
+    """The tweet-mixer world's SANN part from :func:`save_world`'s files
+    (``tweet_mixer_world.build_sann`` at ``TM_SHAPE.sann``, which is
+    bench.py's shape, without its numpy build); None without ``root``."""
+    if root is None:
+        return None
+    shape, _, _, _, _, _, index, sources = load_world(root, dev)
+    require(shape == TM_SHAPE.sann, f"the saved SANN world {shape} is not tweet-mixer's {TM_SHAPE.sann}")
+    corpus = (np.load(os.path.join(root, f"{n}.npy")) for n in ("corpus_ids", "corpus_scores"))
+    return tweet_mixer_world.SannParts(*corpus, index, sources)
 
 
 def mesh_rank(rank: int, root: str) -> int:
@@ -6559,14 +7098,15 @@ def main() -> int:
     by_path.update(phase_products(dev, fy, cand_world, world))
     by_path["write_path"] = phase_write_path(dev, fy)
     by_path["offline_simclusters"] = phase_apart("--offline-simclusters", "offline_simclusters")
-    by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer")
-    emb = phase_apart("--embedding-training", "embedding_training")
-    by_path["embedding_training"] = emb["launches"]
-    phase_apart("--collapse-rows", "run_collapse_rows sweep")
-    kernels["run_collapse_rows"] = emb["run_collapse_rows"]
+    by_path.update(phase_apart("--offline-simclusters-2", "offline_simclusters_2"))
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
-        save_world(world, root)  # the SANN world for the mesh child and its E=4 ranks
+        save_world(world, root)  # the SANN world for these children, built once
+        by_path["tweet_mixer"] = phase_apart("--tweet-mixer", "tweet_mixer", root)
+        emb = phase_apart("--embedding-training", "embedding_training", root)
+        by_path["embedding_training"] = emb["launches"]
+        phase_apart("--collapse-rows", "run_collapse_rows sweep")
+        kernels["run_collapse_rows"] = emb["run_collapse_rows"]
         by_path["mesh"] = phase_apart("--mesh", "mesh", root, timeout=MESH_TIMEOUT)["launches"]
     by_path["mesh_training"] = phase_apart("--mesh-training", "mesh_training", timeout=MT_TIMEOUT)["launches"]
     sources = {
@@ -6591,11 +7131,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": phase_tweet_mixer_alone,
-                    "--embedding-training": phase_embedding_training, "--collapse-rows": phase_collapse_rows_sweep,
-                    "--mesh": lambda dev: phase_mesh(dev, sys.argv[2] if sys.argv[2:] else None),
+    ROOT = sys.argv[2] if sys.argv[2:] else None  # a child's saved SANN world
+    CHILD_PHASES = {"--training": phase_training, "--tweet-mixer": lambda dev: phase_tweet_mixer_alone(dev, ROOT),
+                    "--embedding-training": lambda dev: phase_embedding_training(dev, ROOT),
+                    "--collapse-rows": phase_collapse_rows_sweep,
+                    "--mesh": lambda dev: phase_mesh(dev, ROOT),
                     "--mesh-training": phase_mesh_training,
-                    "--offline-simclusters": phase_offline_simclusters_alone}
+                    "--offline-simclusters": phase_offline_simclusters_alone,
+                    "--offline-simclusters-2": phase_offline_part_two}
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-training-rank"]:

@@ -22,6 +22,7 @@ from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 from the_algorithm_tpu_torch.search import earlybird
 from the_algorithm_tpu_torch.simclusters import ann
+from the_algorithm_tpu_torch.simclusters import index_generation as ig
 
 pytestmark = pytest.mark.gpu
 
@@ -152,6 +153,12 @@ GATHER_CASES = {
     "UTEG seed fetch, 128-byte rows": (16_384, [(32, np.int32)] * 3, 256, "rand", "ring"),
     "UTG two-hop fetch, 128-byte rows": (16_384, [(32, np.int32)] * 2, 32_768, "rand", "ring"),
     "UTG source fetch, 512-byte rows": (32_768, [(128, np.int32)] * 2, 256, "rand", "ring"),
+    # offline SimClusters part 2: the InterestedIn join / RMS multiget (K = 50:
+    # 200-byte rows), the eigen matvec (k = 8: 32-byte rows), the IVF member
+    # vectors (D = 128: 512-byte rows)
+    "InterestedIn join, 200-byte rows": (65_536, [(50, np.int32), (50, np.float32)], 40_000, "rand", "words"),
+    "eigen matvec, 32-byte rows": (4096, [(8, np.float32)], 4096 * 64, "rand", "ring"),
+    "IVF member vectors, 512-byte rows": (262_144, [(128, np.float32)], 8 * 1100, "rand", "ring"),
 }
 
 
@@ -594,3 +601,102 @@ def test_launch_counter_counts_every_thread(cuda_device):
     torch.cuda.synchronize()
     assert not errors, errors[:1]
     assert _build.launches(gather.row_gather) - before == threads * per_thread
+
+
+def test_index_job_collapse_row_matches_plain(cuda_device):
+    """The index job's one [1, E·K] k = 1 row of dense run indices (runs of
+    1 to ~40 slots) against the plain version and float64."""
+    rng = np.random.default_rng(17)
+    W = 1 << 20
+    ids = np.cumsum(rng.random(W) < 0.3).astype(np.int32)[None] - 1
+    vals = rng.random((1, W)).astype(np.float32)
+    got = seg_scan.run_collapse_sorted(*(torch.from_numpy(a).to(cuda_device) for a in (ids, vals)))
+    want = seg_scan.run_collapse_sorted_plain(*(torch.from_numpy(a) for a in (ids, vals)))
+    assert torch.equal(got[0].cpu(), want[0])
+    np.testing.assert_allclose(got[1].cpu().numpy(), _sums64(ids, [vals])[0], rtol=1e-5, atol=1e-6)
+
+
+def test_index_job_on_the_card_matches_the_cpu(cuda_device):
+    """The index job at a cut world: one row_gather and one run_collapse
+    launch; the index equal to the CPU's (ids; scores rtol 1e-5), both held
+    to float64."""
+    from the_algorithm_tpu_torch import _build
+
+    shape = sann_world.IndexJobShape(sann=sann_world.WorldShape(n_comm=16, cpc=64, M=40, N=10, X=50, T=1, KT=1, Q=1),
+                                     users=1024, tweets=8192, events=16_384, K=10)
+    w = sann_world.build_index_job_world(shape, seed=3)
+    cfg = ig.IndexGenerationConfig(num_clusters=1024, num_tweets=8192, tweets_per_cluster=40)
+    events = ig.EventLog(*map(torch.from_numpy, (w.user_rows, w.tweet_ids, w.event_type, w.timestamps)))
+    ii = (torch.from_numpy(w.ii_ids), torch.from_numpy(w.ii_scores))
+    torch.cuda.synchronize()
+    g0, c0 = _build.launches(gather.row_gather), _build.launches(seg_scan.run_collapse_sorted)
+    card = ig.generate_cluster_to_tweet_index(events.to(cuda_device), *(t.to(cuda_device) for t in ii), cfg, w.now)
+    torch.cuda.synchronize()
+    assert (_build.launches(gather.row_gather) - g0, _build.launches(seg_scan.run_collapse_sorted) - c0) == (1, 1)
+    cpu = ig.generate_cluster_to_tweet_index(events, *ii, cfg, w.now)
+    assert torch.equal(card.tweet_ids.cpu(), cpu.tweet_ids)
+    np.testing.assert_allclose(card.scores.cpu().numpy(), cpu.scores.numpy(), rtol=1e-5)
+    for index in (card, cpu):
+        got = ig.compare_with_float64(index, events, w.ii_ids, w.ii_scores, cfg, w.now)
+        assert got["far"] == 0 and got["out_of_order"] == 0 and got["max_rel_err"] <= 1e-5, got
+
+
+def test_offline_part_two_on_the_card_matches_the_cpu(cuda_device):
+    """RMS (cached), the wrapper source, the eigen solver, the IVF query and
+    the entity embeddings on the card against the CPU, small."""
+    from the_algorithm_tpu_torch.ann_lib import ClusteredScanIndex
+    from the_algorithm_tpu_torch.core.config import Params
+    from the_algorithm_tpu_torch.simclusters import candidate_source as cs
+    from the_algorithm_tpu_torch.simclusters import entity_embeddings as ee
+    from the_algorithm_tpu_torch.simclusters import evaluation as ev
+    from the_algorithm_tpu_torch.simclusters import known_for as kf
+    from the_algorithm_tpu_torch.simclusters import representation_manager as rm
+
+    rng = np.random.default_rng(5)
+    C, M, U, K = 256, 16, 64, 10
+    index_np = (rng.integers(0, 5000, (C, M)).astype(np.int32), rng.random((C, M)).astype(np.float32),
+                np.zeros((C, M), np.int32))
+    ii_ids = np.stack([rng.choice(C, K, replace=False) for _ in range(U)]).astype(np.int32)
+    ii_sc = rng.random((U, K)).astype(np.float32)
+    eid = rm.EmbeddingId(rm.EmbeddingKind.FAV_BASED_USER_INTERESTED_IN, rm.EntityKind.USER)
+    lists = []
+    for dev in (cuda_device, torch.device("cpu")):
+        rms = rm.RepresentationManager()
+        rms.register(eid, rm.store_from_pairs(range(U), ii_ids, ii_sc, cached=True, device=dev))
+        src = cs.SimClustersANNWrapperCandidateSource(
+            rms, ClusterTweetIndex(*(torch.from_numpy(a).to(dev) for a in index_np)),
+            cs.SimClustersANNWrapperConfig(embedding=eid, ann_config=ann.SimClustersANNConfig(
+                max_scan_clusters=6, max_top_tweets_per_cluster=M, max_num_results=20)))
+        lists.append([[(c.id, c.score) for c in src.get({"user_id": u}, Params())] for u in range(0, U, 7)])
+    for a, b in zip(*lists):  # a tweet in one scanned cluster scores its cluster's cosine: ties
+        assert len(a) == len(b)
+        assert_same_topk(np.asarray([[t for t, _ in a]]), np.asarray([[x for _, x in a]], np.float32),
+                         np.asarray([[t for t, _ in b]]), np.asarray([[x for _, x in b]], np.float32), rtol=1e-5)
+
+    A = rng.random((128, 128)).astype(np.float32)
+    A = (A + A.T) / 2 + 8 * np.eye(128, dtype=np.float32)
+    g = kf.Graph(torch.from_numpy(np.tile(np.arange(128, dtype=np.int32), (128, 1))), torch.from_numpy(A))
+    vals_card, q_card = ev.top_eigenvectors(g.to(cuda_device), 4, iterations=40)
+    vals_cpu, q_cpu = ev.top_eigenvectors(g, 4, iterations=40)
+    np.testing.assert_allclose(vals_card.cpu().numpy(), vals_cpu.numpy(), rtol=1e-4)
+    np.testing.assert_allclose((q_card @ q_card.T).cpu().numpy(), (q_cpu @ q_cpu.T).numpy(), atol=1e-4)
+
+    x = rng.normal(size=(4096, 128)).astype(np.float32)
+    ivf = [ClusteredScanIndex(128, n_clusters=16, n_probes=4, device=d) for d in (cuda_device, "cpu")]
+    for i in ivf:
+        i.append(np.arange(4096), x)
+        i.build()
+    ivf[1]._load(ivf[0]._centroids.cpu(), ivf[0]._members.cpu().numpy())  # the card's cells on both
+    got, want = ivf[0].query(x[:8], 10), ivf[1].query(x[:8], 10)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+    ent = torch.from_numpy(rng.integers(0, 32, 2000).astype(np.int32))
+    usr = torch.from_numpy(rng.integers(0, U, 2000).astype(np.int32))
+    wts = torch.from_numpy(rng.random(2000).astype(np.float32))
+    interests = SparseEmbedding(torch.from_numpy(ii_ids), torch.from_numpy(ii_sc))
+    out = [ee.entity_embeddings_from_engagements(
+        ent.to(d), usr.to(d), wts.to(d), SparseEmbedding(*(t.to(d) for t in interests)), num_entities=32,
+        num_clusters=C, top_k=20) for d in (cuda_device, torch.device("cpu"))]
+    assert_same_topk(out[0].ids.cpu().numpy(), out[0].scores.cpu().numpy(), out[1].ids.numpy(),
+                     out[1].scores.numpy(), rtol=1e-5, atol=1e-7)

@@ -5,12 +5,18 @@ Numpy builders that reproduce ``bench.py``'s ``build_corpus``,
 (``bench.py:822-831``) draw for draw, from the same seeds and in the same
 order, so the port is measured on the very data the JAX package was. The
 sizes are arguments; :data:`PROD` holds the bench's production shape.
+
+:func:`build_index_job_world` adds the offline index job's inputs at those
+widths (port-only): users' InterestedIn rows drawn as :func:`draw_queries`
+draws queries, tweets each of a community, and user → tweet engagement
+events, mostly within the user's community; :data:`INDEX_JOB` holds the
+card's counts.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 
@@ -102,3 +108,60 @@ def padded_corpus(tweet_ids: np.ndarray, tweet_scores: np.ndarray, block: int):
     ti[:T] = tweet_ids
     tsc[:T] = tweet_scores
     return ti, tsc
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexJobShape:
+    """The index job's world: :data:`PROD`'s clusters and communities, cut
+    counts of users, tweets and events."""
+
+    sann: WorldShape = PROD  # C = 145,408 clusters in 512 communities
+    users: int = 1 << 16
+    tweets: int = 1 << 20
+    events: int = 1 << 19
+    K: int = 50  # InterestedIn clusters a user: a query's N
+    in_community: float = 0.9  # the share of a user's events on its community's tweets
+    window_s: int = 2 * 86400  # events' ages lie in [0, window_s)
+    type_mix: Tuple[float, ...] = (0.6, 0.15, 0.1, 0.1, 0.05)  # fav, retweet, reply, video view, push open
+
+
+INDEX_JOB = IndexJobShape()
+
+
+class IndexJobWorld(NamedTuple):
+    ii_ids: np.ndarray  # [U, K] int32 users' InterestedIn clusters, all of one community
+    ii_scores: np.ndarray  # [U, K] float32
+    user_comm: np.ndarray  # [U] the users' communities
+    tweet_comm: np.ndarray  # [T] the tweets' communities
+    user_rows: np.ndarray  # [E] int32 the engaging user
+    tweet_ids: np.ndarray  # [E] int32 the engaged tweet
+    event_type: np.ndarray  # [E] int32 into the job's event weights
+    timestamps: np.ndarray  # [E] int32 seconds
+    now: int
+
+
+def build_index_job_world(shape: IndexJobShape = INDEX_JOB, seed: int = 17) -> IndexJobWorld:
+    """The index job's inputs from ``seed``, with numpy. The communities'
+    clusters are :func:`build_corpus`'s first draw (seed 0)."""
+    s = shape.sann
+    comm_clusters = np.random.default_rng(0).permutation(s.C).reshape(s.n_comm, s.cpc).astype(np.int32)
+    ii_ids, ii_scores = draw_queries(dataclasses.replace(s, Q=shape.users, N=shape.K), comm_clusters, seed)
+    comm_of = np.empty(s.C, np.int64)
+    comm_of[comm_clusters] = np.arange(s.n_comm)[:, None]
+    user_comm = comm_of[ii_ids[:, 0]]
+    rng = np.random.default_rng(seed + 1)
+    tweet_comm = rng.integers(0, s.n_comm, shape.tweets)
+    user_rows = rng.integers(0, shape.users, shape.events)
+    ucomm = user_comm[user_rows]
+    by_comm = np.argsort(tweet_comm, kind="stable")
+    counts = np.bincount(tweet_comm, minlength=s.n_comm)
+    start = np.cumsum(counts) - counts
+    own = by_comm[start[ucomm] + np.minimum((rng.random(shape.events) * counts[ucomm]).astype(np.int64),
+                                            np.maximum(counts[ucomm] - 1, 0))]
+    tweet_ids = np.where(rng.random(shape.events) < shape.in_community, own,
+                         rng.integers(0, shape.tweets, shape.events))
+    event_type = rng.choice(len(shape.type_mix), shape.events, p=shape.type_mix)
+    timestamps = rng.integers(0, shape.window_s, shape.events)
+    return IndexJobWorld(ii_ids, ii_scores, user_comm, tweet_comm, user_rows.astype(np.int32),
+                         tweet_ids.astype(np.int32), event_type.astype(np.int32), timestamps.astype(np.int32),
+                         shape.window_s)

@@ -454,11 +454,14 @@ def _queries(shape: TweetMixerShape, cand: CandidateParts, rng: np.random.Genera
     return out
 
 
-def build(shape: TweetMixerShape = FULL, *, seed: int = 13, device=None) -> TweetMixerWorld:
+def build(shape: TweetMixerShape = FULL, *, seed: int = 13, device=None,
+          sann: Optional[SannParts] = None) -> TweetMixerWorld:
     """The world on ``device`` (default: the card), over the SANN and For
-    You worlds of their own seeds."""
+    You worlds of their own seeds; ``sann``: the SANN world of
+    :func:`build_sann` at ``shape.sann`` already built (its numpy build
+    takes most of a minute at the full shape)."""
     dev = resolve(device, "tweet_mixer_world")
-    sann = build_sann(shape.sann, dev)
+    sann = build_sann(shape.sann, dev) if sann is None else sann
     cand = build_candidates(shape, dev)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)

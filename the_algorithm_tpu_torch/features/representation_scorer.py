@@ -6,11 +6,14 @@ Counterpart of ``the_algorithm_tpu/features/representation_scorer.py``
 SimClusters embedding and the embeddings of the user's recent engagement
 tweets per signal type and time window, aggregated as avg/max/min. One
 pairwise matrix of candidates [C] × engagements [E] per similarity kind,
-masked per signal and window, reduced.
+masked per signal and window, reduced. The score-store pieces
+(:class:`PairScoreStore`, :func:`weighted_sum_score`) stand beside it, as
+in the JAX module.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -91,3 +94,37 @@ def engagement_similarity_features(
                 out[f"{prefix}{s_name}_{w_name}_max"] = mx
                 out[f"{prefix}{s_name}_{w_name}_min"] = mn
     return out
+
+
+# -- generic pairwise score store (simclusters_v2/score facade analog) -------
+
+
+@dataclasses.dataclass(frozen=True)
+class PairScoreStore:
+    """≡ ``SimClustersEmbeddingPairScoreStore.build*Store``
+    (``simclusters_v2/score/SimClustersEmbeddingPairScoreStore.scala:39-139``):
+    one callable per similarity kind over embedding pairs of any batch shape."""
+
+    kind: str  # dot | cosine | log_cosine | exp_cosine | jaccard | euclidean | manhattan
+
+    def __call__(self, a: SparseEmbedding, b: SparseEmbedding) -> torch.Tensor:
+        fn = {
+            "dot": sparse.dot,
+            "cosine": sparse.cosine,
+            "log_cosine": sparse.log_norm_cosine,
+            "exp_cosine": sparse.exp_scaled_cosine,
+            "jaccard": sparse.fuzzy_jaccard,
+            "euclidean": sparse.euclidean,
+            "manhattan": sparse.manhattan,
+        }[self.kind]
+        return fn(a, b)
+
+
+def weighted_sum_score(scores: Dict[str, torch.Tensor], weights: Dict[str, float]) -> torch.Tensor:
+    """≡ ``score/WeightedSumAggregatedScoreStore.scala``: a linear blend of
+    pair scores, summed in ``weights``' order."""
+    total = None
+    for k, w in weights.items():
+        term = scores[k] * w
+        total = term if total is None else total + term
+    return total

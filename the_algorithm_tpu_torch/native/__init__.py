@@ -4,10 +4,11 @@ A copy of the JAX package's ``native/__init__.py`` for the port's copies of
 ``src/tpurecsys.cc`` (the TRec block codec, densifiers, the hashing
 discretizer, murmur3 and the multiplicative hash) and
 ``src/serving_core.cc`` (the ``sc_*`` socket front and batcher that
-``serving/native_front.py`` drives), with the same Python functions. The
-JAX package's ``hnsw.cc`` waits for the port of ``ann_lib``.
+``serving/native_front.py`` drives) and ``src/hnsw.cc`` (the HNSW engine
+behind ``ann_lib/hnsw.py``, a byte-for-byte copy), with the same Python
+functions and C entry points.
 
-The library is built from both sources with ``g++ -O3 -std=c++17
+The library is built from the three sources with ``g++ -O3 -std=c++17
 -pthread`` at first use into ``build/native/`` under the repository root
 (gitignored), named by a hash of the flags and of every source, never into
 the package directory; a failed build raises. Nothing here runs at import
@@ -26,7 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _SRCS = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)), "src", name)
-              for name in ("tpurecsys.cc", "serving_core.cc"))
+              for name in ("tpurecsys.cc", "hnsw.cc", "serving_core.cc"))
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "build", "native"
 )
@@ -73,7 +74,7 @@ def lib() -> ctypes.CDLL:
 
 def _declare(L: ctypes.CDLL) -> None:
     """Every entry point's C signature (``src/tpurecsys.cc``,
-    ``src/serving_core.cc``)."""
+    ``src/hnsw.cc``, ``src/serving_core.cc``)."""
     u8p, u32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint32)
     i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
     u64p, f32p = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_float)
@@ -89,6 +90,16 @@ def _declare(L: ctypes.CDLL) -> None:
         "tpurecsys_densify": (ctypes.c_int, [u8p, u64, i64p, u32, f32p, u8p]),
         "tpurecsys_densify_labels": (ctypes.c_int, [u8p, u64, i64p, u32, f32p, u8p]),
         "tpurecsys_hash_discretize": (ctypes.c_int, [u8p, u64, i64p, u32, f32p, u32, u32, u32, i32p, f32p, u8p]),
+        # the HNSW engine (ann_lib/hnsw.py)
+        "tpurecsys_hnsw_create": (ctypes.c_void_p, [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                                                    u64]),
+        "tpurecsys_hnsw_free": (None, [ctypes.c_void_p]),
+        "tpurecsys_hnsw_size": (u64, [ctypes.c_void_p]),
+        "tpurecsys_hnsw_insert": (ctypes.c_int32, [ctypes.c_void_p, f32p, ctypes.c_int64]),
+        "tpurecsys_hnsw_insert_batch": (None, [ctypes.c_void_p, f32p, i64p, u64]),
+        "tpurecsys_hnsw_search": (ctypes.c_int32, [ctypes.c_void_p, f32p, ctypes.c_int32, ctypes.c_int32, i64p, f32p]),
+        "tpurecsys_hnsw_save": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_char_p]),
+        "tpurecsys_hnsw_load": (ctypes.c_void_p, [ctypes.c_char_p]),
         # the serving core (navi-equivalent socket front + batcher)
         "sc_start": (ctypes.c_void_p, [ctypes.c_int, u32, u32, u32, ctypes.c_int64]),
         "sc_port": (ctypes.c_int, [ctypes.c_void_p]),

@@ -272,6 +272,15 @@ def approximate_cosine_similarity(
     return top_ids, top_scores
 
 
+def approximate_cosine_similarity_batch(
+    index: ClusterTweetIndex, sources: SparseEmbedding, **kwargs
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's name for the batched call, ``jax.vmap`` of its
+    single-query form over [Q, N] sources: here the same call as
+    :func:`approximate_cosine_similarity`, which takes Q queries already."""
+    return approximate_cosine_similarity(index, sources, **kwargs)
+
+
 # -- numpy reference (golden-parity oracle) ----------------------------------
 
 

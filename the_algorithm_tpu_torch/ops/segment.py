@@ -15,6 +15,10 @@ keeps the sum of its values at its first slot, as JAX's prefix-sum
 difference does. Where the sums differ: JAX takes a run's total as the
 difference of two f32 prefix sums, so its error grows with the row's prefix;
 the kernel sums each run directly.
+
+:func:`ranked` and :func:`run_rank` are the ranked cuts of the offline jobs
+(top-K a group after a sort by group, then score descending), in
+``lax.sort``'s order.
 """
 
 from __future__ import annotations
@@ -94,3 +98,30 @@ def scatter_sum(keys: torch.Tensor, *values: torch.Tensor, size: int) -> Tuple[t
             dense = torch.zeros(size + 1, dtype=torch.float32, device=keys.device)
             out.append(dense.index_put_((rows,), t.reshape(-1))[:size])
     return tuple(out)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _descending_image(score: torch.Tensor) -> torch.Tensor:
+    """An int64 in [0, 2³²) per f32 score that sorts ascending as the score
+    sorts descending; −0.0 maps with +0.0 (``lax.sort`` ranks them equal)."""
+    bits = (score + 0.0).contiguous().view(torch.int32).to(torch.int64) & _U32
+    ascending = torch.where(bits >= 0x80000000, _U32 - bits, bits + 0x80000000)
+    return _U32 - ascending
+
+
+def ranked(group: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    """The permutation of a stable sort by (group ascending, score
+    descending): ``lax.sort((group, −score), num_keys=2)``'s order, one
+    int64 sort of the group above an order-preserving image of the score.
+    ``group`` fits 32 bits; equal (group, score) keep their input order."""
+    return torch.sort(group.to(torch.int64) * (1 << 32) + _descending_image(score), stable=True).indices
+
+
+def run_rank(keys: torch.Tensor) -> torch.Tensor:
+    """Rank of each element within its run of equal (sorted) keys."""
+    idx = torch.arange(keys.shape[0], device=keys.device)
+    is_start = torch.ones_like(keys, dtype=torch.bool)
+    is_start[1:] = keys[1:] != keys[:-1]
+    return idx - torch.cummax(torch.where(is_start, idx, 0), dim=0).values
