@@ -303,7 +303,27 @@ Phases, each printing its result on its own line:
     ranks on this one card (``--mesh-training-rank``): the explicit
     two-tower on a 2x2 mesh (16,384 x 262,144 x 128, B=1,024), MaskNet
     (F=6,000, f32, B=1,024) on a 1x4 mesh, and the 4x1 local-batch contract,
-    each rank's blocks and losses against the same runs at world 1.
+    each rank's blocks and losses against the same runs at world 1; the
+    two-tower's checkpoint after 2 steps on 2x2 restored on 1x4 and 4x1 (the
+    ranks), on the 1x1 NCCL mesh and into a one-device Trainer (this
+    process): every rank's params and Adam moments bit-equal to the saved
+    global arrays' blocks (assembled from the saved files here), and the next
+    step within the Adam rule of the run that never stopped;
+19. phoenix_training, in a child process after that one (``chip_smoke.py
+    --phoenix-training`` runs it alone): Phoenix at ``PhoenixConfig()``'s
+    full width (bf16) serves 160 requests of 1,400 candidates through the
+    Phoenix scorer (users with planted liked authors, histories aggregated
+    from 400 raw events), the side effect logs them, ``training_batch`` joins
+    the planted favs, and the one-device ``Trainer`` (adam 1e-3) trains on
+    128 of them in batches of 32: one counted step (1 row_gather + 1
+    run_collapse_rows, required exactly), the first step's f32 gradients on
+    the card against the port on the CPU, the JAX round trip's bars (last
+    loss below 0.7 x the first, engaged candidates' mean fav probability
+    above the unengaged ones'), the preference AUC on 32 held-out requests
+    (printed), a save restored into a fresh Trainer (the saved bits; two
+    equal steps from it bit-equal), a step on CUDA events and by part, both
+    kernels at the step's shapes; then the JAX package's AUC recipe at its
+    own shape (AUC > 0.75).
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
@@ -311,7 +331,7 @@ updates, the per-request For You product, the serving edge, the products
 phase's FRS, push, trust & safety, timeline ranker and actions, the write
 path, the offline jobs, the index job, RMS and the wrapper source, the
 score facade, evaluation, entity embeddings, ann_lib, embedding training,
-the mesh layer's serving and training halves),
+the mesh layer's serving and training halves, Phoenix training),
 error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
@@ -5397,9 +5417,10 @@ def phase_training(dev):
 
 
 def child_main(phase) -> int:
-    """``chip_smoke.py --training``, ``--tweet-mixer`` or
-    ``--embedding-training``: that phase alone, on the card, its launches
-    (and the embedding phase's kernel numbers) as the last line of output."""
+    """``chip_smoke.py --training``, ``--tweet-mixer``, ``--phoenix-training``
+    or another of ``CHILD_PHASES``: that phase alone, on the card, its
+    launches (and the embedding phase's kernel numbers) as the last line of
+    output."""
     require(torch.cuda.is_available(), "no CUDA device: this script runs on an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6741,6 +6762,7 @@ def phase_mesh(dev, root=None):
 # the sharded Trainer with masknet.PARTITION_RULES, held to the one-device step.
 # Then E=4 on this one card: four gloo ranks (correctness only).
 MT_STEPS = 3  # steps the sharded Trainer is held to the one-device Trainer (and the E=4 ranks to world 1)
+MT_SAVED = 2  # the E=4 two-tower's checkpoint: after this many steps on 2x2, restored on other meshes
 MT_E4 = dict(users=16_384, items=262_144, dim=128, batch=1_024)  # the E=4 two-tower
 MT_E4_MASKNET = dict(TRAIN_MODEL, dtype="float32")  # the E=4 MaskNet on 1x4, f32
 MT_E4_LR = 1e-2
@@ -6774,6 +6796,14 @@ def adam_rule(got, want, steps, lr, what):
 
 def params_of(model):
     return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def trainer_state(tr):
+    """A Trainer's params and optimizer state by name (clones)."""
+    names = {p: n for n, p in tr.model.named_parameters()}
+    out = {f"param/{k}": v.detach().clone() for k, v in tr.model.named_parameters()}
+    out.update({f"{k}/{names[p]}": v.clone() for p, st in tr.optimizer.state.items() for k, v in st.items()})
+    return out
 
 
 def mt_embedding(dev, mesh, name, planted, users):
@@ -6900,23 +6930,33 @@ def e4_batches():
              "items": rng.integers(0, s["items"], s["batch"]).astype(np.int32)} for _ in range(MT_STEPS)]
 
 
-def e4_runs(dev, mesh, rank=None):
+def e4_runs(dev, mesh, rank=None, ckpt=None):
     """The E=4 check's three runs on ``mesh`` (world 1 in the parent, the
     2x2, 1x4 and 4x1 meshes on a rank): the explicit two-tower, the f32
-    MaskNet and the implicit two-tower fed local batches. Returns numpy
+    MaskNet and the implicit two-tower fed local batches. With ``ckpt`` the
+    two-tower saves there after MT_SAVED steps, and Trainers on the 1x4 and
+    4x1 meshes restore it (their state, then their next step). Returns numpy
     results by name, and the two sharded models' specs."""
     meshes = mesh if isinstance(mesh, dict) else {k: mesh for k in ("2x2", "1x4", "4x1")}
     res = {}
-    tt = Trainer(tweet_mixer_world.two_tower_train_loss, e4_two_tower(dev, True), TrainerConfig(learning_rate=MT_E4_LR),
-                 mesh=meshes["2x2"], partition_rules=two_tower.PARTITION_RULES)
+    cfg = TrainerConfig(learning_rate=MT_E4_LR, checkpoint_dir=ckpt)
+    tt = Trainer(tweet_mixer_world.two_tower_train_loss, e4_two_tower(dev, True), cfg, mesh=meshes["2x2"],
+                 partition_rules=two_tower.PARTITION_RULES)
     batches = e4_batches()
     _, n = counted(lambda: tt.train_step(batches[0]))
     for b in batches[1:]:
+        if ckpt and tt.step == MT_SAVED:
+            tt.save()
         tt.train_step(b)
     res["tt_launches"] = np.asarray([n["row_gather"], n["run_collapse_rows"]])
     res.update({f"tt/{k}": v.cpu().numpy() for k, v in params_of(tt.model).items()})
     specs = {"tt": tt.specs}
     del tt
+    for key in ("1x4", "4x1") if ckpt else ():
+        rt = Trainer(tweet_mixer_world.two_tower_train_loss, e4_two_tower(dev, True), cfg, mesh=meshes[key],
+                     partition_rules=two_tower.PARTITION_RULES)
+        res.update(restored_after(rt, batches[MT_SAVED], f"rs/{key}"))
+        del rt
     cfg = masknet.MaskNetConfig(**MT_E4_MASKNET)
     (mn,) = masknet_trainers(dev, cfg, (meshes["1x4"],))
     batch = masknet_batch(dev, cfg, MT_E4["batch"], seed=9)
@@ -6941,6 +6981,54 @@ def e4_runs(dev, mesh, rank=None):
     return res, specs
 
 
+def restored_after(tr, batch, prefix):
+    """``tr`` restored from its checkpoint_dir: its params and Adam state
+    by name, its step, then its params after a step on ``batch`` (numpy)."""
+    tr.restore()
+    out = {f"{prefix}/{k}": v.cpu().numpy() for k, v in trainer_state(tr).items()}
+    out[f"{prefix}/step"] = np.asarray(tr.step)
+    tr.train_step(batch)
+    out.update({f"{prefix}/next/{k}": v.cpu().numpy() for k, v in params_of(tr.model).items()})
+    return out
+
+
+def saved_globals(step_dir, names, specs, sizes, shapes):
+    """The global arrays of a mesh checkpoint's params and Adam moments, by
+    name as :func:`trainer_state` names them, assembled from the raw files
+    (``state.<rank>.pt``, each rank's blocks at its mesh position) by
+    :func:`spec_block`, and the Adam count."""
+    out = {}
+    count = None
+    for j in range(int(np.prod(list(sizes.values())))):
+        f = torch.load(os.path.join(step_dir, f"state.{j}.pt"), map_location="cpu")
+        coords = {"data": j // sizes["model"], "model": j % sizes["model"]}
+        for i, n in enumerate(names):
+            st = f["optimizer"]["state"][i]
+            count = int(st["count"]) if count is None else count
+            for key, block in ((f"param/{n}", f["model"][n]), (f"mu/{n}", st["mu"]), (f"nu/{n}", st["nu"])):
+                glob = out.setdefault(key, np.zeros(shapes[n], block.numpy().dtype))
+                spec_block(glob, specs[n], coords, sizes)[...] = block.numpy()
+    return out, count
+
+
+def check_restored(got, saved, count, specs, sizes, coords, never_stopped, what):
+    """A restored Trainer's state (``restored_after``'s) against the saved
+    global arrays' blocks at ``coords`` of a mesh of ``sizes``, bit for
+    bit, and its next step within the Adam rule of the run that never
+    stopped. Returns the next step's max |diff|."""
+    for key, glob in saved.items():
+        n = key.split("/", 1)[1]
+        require(np.array_equal(got[key], spec_block(glob, specs[n], coords, sizes)),
+                f"{what}: the restored {key} is not the saved global array's block")
+    require(int(got["step"]) == MT_SAVED and all(int(got[f"count/{n}"]) == count for n in specs)
+            and all(got[f"count/{n}"].dtype == np.int32 for n in specs),
+            f"{what}: restored step {got['step']}, counts not the saved int32 {count}")
+    nxt = {n: torch.from_numpy(np.ascontiguousarray(got[f"next/{n}"])) for n in specs}
+    ref = {n: torch.from_numpy(np.ascontiguousarray(spec_block(never_stopped[n], specs[n], coords, sizes)))
+           for n in specs}
+    return adam_rule(nxt, ref, MT_STEPS, MT_E4_LR, f"{what}: the step after the restore")[0]
+
+
 def mt_rank(rank: int, root: str) -> int:
     """One of the E=4 check's ranks (``chip_smoke.py --mesh-training-rank r
     dir``): a gloo rank on cuda:0 running :func:`e4_runs` on 2x2, 1x4 and
@@ -6955,7 +7043,7 @@ def mt_rank(rank: int, root: str) -> int:
     try:
         meshes = {k: meshlib.make_mesh(meshlib.MeshSpec(data=d, model=m)) for k, (d, m) in
                   (("2x2", (2, 2)), ("1x4", (1, 4)), ("4x1", (4, 1)))}
-        res, _ = e4_runs(dev, meshes, rank)
+        res, _ = e4_runs(dev, meshes, rank, ckpt=os.path.join(root, "tt_ckpt"))
         dist.barrier()
         np.savez(os.path.join(root, f"mt_rank{rank}.npz"), **res)
     finally:
@@ -7039,6 +7127,43 @@ def mt_four_ranks(dev, mesh, root):
           f"summation order); the implicit two-tower on 4x1 fed "
           f"a different quarter on each rank: the reported loss the global batch's within rtol {MT_LOSS_RTOL}; "
           f"{time.perf_counter() - t0:.1f} s (correctness only)")
+    mt_restores(dev, mesh, root, outs, specs["tt"], {k[3:]: v.numpy() for k, v in want.items() if k.startswith("tt/")})
+
+
+def mt_restores(dev, mesh, root, outs, specs, never_stopped):
+    """The E=4 two-tower's 2x2 checkpoint (after MT_SAVED steps) restored on
+    1x4 and 4x1 (the ranks' ``rs/`` results), on this process's 1x1 NCCL
+    mesh and into a one-device Trainer (the implicit two-tower: the row
+    exchange needs a mesh; the E=4 ids are in range, where both reads
+    agree): each against the saved global arrays assembled from the files,
+    and its next step against the world-1 run that never stopped."""
+    t0 = time.perf_counter()
+    names = list(specs)
+    ckpt = os.path.join(root, "tt_ckpt")
+    shapes = {n: never_stopped[n].shape for n in names}
+    saved, count = saved_globals(os.path.join(ckpt, str(MT_SAVED)), names, specs, {"data": 2, "model": 2}, shapes)
+    worst = {}
+    for r, o in enumerate(outs):
+        for key, sizes in (("1x4", {"data": 1, "model": 4}), ("4x1", {"data": 4, "model": 1})):
+            got = {k[len(key) + 4:]: o[k] for k in o.files if k.startswith(f"rs/{key}/")}
+            coords = {"data": r // sizes["model"], "model": r % sizes["model"]}
+            worst[key] = max(worst.get(key, 0.0), check_restored(got, saved, count, specs, sizes, coords,
+                                                                 never_stopped, f"E=4 rank {r} restored on {key}"))
+    cfg = TrainerConfig(learning_rate=MT_E4_LR, checkpoint_dir=ckpt)
+    batch = e4_batches()[MT_SAVED]
+    one, origin = {"data": 1, "model": 1}, {"data": 0, "model": 0}
+    for what, make in (("1x1 NCCL", lambda: Trainer(tweet_mixer_world.two_tower_train_loss, e4_two_tower(dev, True),
+                                                     cfg, mesh=mesh, partition_rules=two_tower.PARTITION_RULES)),
+                       ("one device", lambda: Trainer(tweet_mixer_world.two_tower_train_loss,
+                                                      e4_two_tower(dev, False), cfg, device=dev))):
+        got = {k[3:]: v for k, v in restored_after(make(), batch, "rs").items()}
+        worst[what] = check_restored(got, saved, count, specs, one, origin, never_stopped, f"restored on {what}")
+        torch.cuda.empty_cache()
+    print(f"mesh_training: the E=4 two-tower's 2x2 checkpoint after {MT_SAVED} steps restored on 1x4 and 4x1 (each "
+          f"rank), on the 1x1 NCCL mesh and into a one-device Trainer: params and Adam moments bit-equal to the saved "
+          f"global arrays' blocks (assembled from the four files), the int32 count and the step; the next step within "
+          f"the Adam rule of the world-1 run that never stopped (max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f"); {time.perf_counter() - t0:.1f} s")
 
 
 def phase_mesh_training(dev):
@@ -7066,6 +7191,278 @@ def phase_mesh_training(dev):
     launches = {k: tt[k] + th[k] for k in tt}
     print(f"mesh_training: launches of the path {launches} (a sharded two-tower step {tt}, a TwHIN step {th})")
     return {"launches": launches, "row_gather": timing}
+
+
+# Phoenix training at full width (``PhoenixConfig()``: d 256, 4 layers, 8
+# heads, L 256, 65,536 author buckets, bf16) on batches made from a served
+# log, as the JAX round trip (tests/test_phoenix.py:406-482) makes them: each
+# user favs a planted set of authors, which also fill most of its history
+PT_CONFIG = phoenix.PhoenixConfig()
+PT_B = 32  # requests a step
+PT_C = 1400  # candidates a request: PhoenixUtils.scala's MaxCandidates, training_batch's max_candidates
+PT_USERS = 128  # users served once each: PT_USERS / PT_B training batches
+PT_HELD_OUT = 32  # users served for the preference AUC, never trained on
+PT_AUTHORS = 4096  # FY_WORLD's authors
+PT_LIKED = 32  # authors a user favs
+PT_HISTORY_LIKED = 0.7  # share of a user's raw events on its liked authors
+PT_LIKED_SHARE = 0.3  # share of a request's candidates by its liked authors
+PT_EVENTS = 400  # raw events a user: aggregated, the history fills its 256 slots
+PT_SEED = 18
+PT_LR = 1e-3  # adam (TrainerConfig(optimizer="adam"): optax.adamw at decay 0)
+PT_EPOCHS = 40  # passes over the training batches
+PT_TIMED = 20  # loop-carried steps timed with CUDA events
+PT_RETRAIN = 0.7  # the JAX round trip's bar: the last loss below 0.7 x the first
+PT_TIMEOUT = 300  # the child's limit, inside the script's
+# one step: author_emb's read of every request's history and candidates (one
+# row_gather) and its gradient (one run_collapse_rows); the action, age and
+# position tables are plain indexing
+PT_LAUNCHES = {"run_collapse": 0, "row_gather": 1, "run_collapse_rows": 1}
+# first-step f32 gradients, card against CPU: of each parameter's largest
+# entry, plus a floor of the largest gradient entry's (a gradient whose
+# terms cancel carries their f32 noise: tests/test_torch_phoenix_training.py)
+PT_GRAD_FLOOR = 1e-7
+# the JAX package's AUC recipe at its own shape (tests/test_phoenix.py:255-350)
+PT_RECIPE = phoenix.PhoenixConfig(d_model=32, n_layers=1, n_heads=2, max_history=16, author_buckets=32,
+                                  dtype="float32")
+PT_RECIPE_C, PT_RECIPE_B, PT_RECIPE_STEPS, PT_RECIPE_EVAL = 8, 32, 300, 64
+PT_RECIPE_AUC = 0.75
+FAV = int(phoenix.ActionName.SERVER_TWEET_FAV)
+
+
+def pt_user(u):
+    """User ``u``'s planted world, drawn from (PT_SEED, u): its liked
+    authors, its raw events (ts_ms, action, author) over the last 7 days, its
+    candidates' authors and kinds (0 plain, 1 reply, 2 quote, 3 retweet)."""
+    rng = np.random.default_rng([PT_SEED, int(u)])
+    liked = rng.choice(PT_AUTHORS, PT_LIKED, replace=False)
+    n = PT_EVENTS
+    ts = foryou_world.NOW * 1000 - rng.integers(0, 7 * 86400 * 1000, n)
+    authors = np.where(rng.random(n) < PT_HISTORY_LIKED, rng.choice(liked, n), rng.integers(0, PT_AUTHORS, n))
+    events = list(zip(ts.tolist(), rng.integers(1, phoenix.NUM_ACTIONS, n).tolist(), authors.tolist()))
+    c_auth = np.where(rng.random(PT_C) < PT_LIKED_SHARE, rng.choice(liked, PT_C), rng.integers(0, PT_AUTHORS, PT_C))
+    return liked, events, c_auth, rng.integers(0, 4, PT_C)
+
+
+PT_KIND_FEATURES = ({}, {"in_reply_to_tweet_id": 1}, {"quoted_tweet_id": 1}, {"source_tweet_id": 1})
+
+
+def pt_serve(dev, model, users):
+    """Serve each user's request once through the Phoenix scorer over
+    ``model`` and log it with the side effect; then the log joined with the
+    planted favs by ``training_batch``. Returns the per-request examples in
+    user order and the (user, tweet) favs."""
+    scorer = ps.PhoenixScorer(phoenix.scorer_predict_fn(model))
+    side = pl.ScoredPhoenixCandidatesSideEffect(pl.PhoenixScoreStore())
+    seqs, favs = {}, {}
+    for u in users:
+        liked, events, c_auth, kinds = pt_user(u)
+        h = phoenix.aggregate_history(events, now_ms=foryou_world.NOW * 1000, max_length=PT_CONFIG.max_history)
+        seqs[u] = phoenix.UserActionSequence(*(torch.from_numpy(h[k]) for k in phoenix.UserActionSequence._fields))
+        cands = [Candidate(id=int(u) * PT_C + i, score=0.0, features={"author_id": int(a), **PT_KIND_FEATURES[k]})
+                 for i, (a, k) in enumerate(zip(c_auth, kinds))]
+        q = SimpleNamespace(user_id=int(u), now=foryou_world.NOW, features={"user_actions": seqs[u].to(dev)})
+        scorer.score(q, cands, None)
+        side.run(q, cands, None)
+        liked = set(liked.tolist())
+        favs.update({(int(u), c.id): [FAV] for c in cands if c.features["author_id"] in liked})
+    require(len(side.log) == len(users) * PT_C, f"phoenix_training: the side effect logged {len(side.log)} of "
+                                                f"{len(users) * PT_C} served candidates")
+    return pl.training_batch(side.log, favs, seqs.__getitem__, PT_CONFIG.author_buckets, PT_C), favs
+
+
+def pt_stack(examples):
+    """Per-request (sequence, candidates, labels) stacked into one [B, ...]
+    batch (the JAX tests stack with ``tree_map(jnp.stack, ...)``)."""
+    seqs, cands, labels = zip(*examples)
+    return (phoenix.UserActionSequence(*(torch.stack(f) for f in zip(*seqs))),
+            phoenix.CandidateFeatures(*(torch.stack(f) for f in zip(*cands))), torch.stack(labels))
+
+
+def pt_loss(model, batch):
+    seq, cands, labels = batch
+    return phoenix.multi_action_loss(model(seq, cands), labels, cands.valid), {}
+
+
+def pt_fav_split(model, batch):
+    """(fav probability of every valid candidate, its fav label) of a batch."""
+    seq, cands, labels = batch
+    with torch.no_grad():
+        p = phoenix.predict_next_actions(model, seq, cands)[..., FAV]
+    keep = cands.valid
+    return p[keep].float().cpu(), labels[..., FAV][keep].cpu()
+
+
+def pt_card_against_cpu(dev, init, batch):
+    """The first step's f32 gradients at full width (TF32 off) on the card
+    and on the CPU from the same init and batch, per parameter."""
+    cfg = dataclasses.replace(PT_CONFIG, dtype="float32")
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        model = phoenix.PhoenixModel(cfg, device=where)
+        model.load_state_dict(init)
+        loss, _ = pt_loss(model, put_batch(batch, where))
+        loss.backward()
+        grads.append({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+        del model, loss
+    card, cpu = grads
+    floor = PT_GRAD_FLOOR * max(float(g.abs().max()) for g in cpu.values())
+    for k in cpu:
+        require(float((card[k] - cpu[k]).abs().max()) <= GRAD_SCALE_TOL * float(cpu[k].abs().max()) + floor,
+                f"phoenix_training: f32 gradients of {k} card vs CPU beyond {GRAD_SCALE_TOL} of its largest entry "
+                f"+ {PT_GRAD_FLOOR:g} of the largest gradient's")
+    require(bool(cpu["author_emb.embedding"].abs().max() > 0), "phoenix_training: author_emb has no gradient")
+    return max(float((card[k] - cpu[k]).abs().max() / cpu[k].abs().max().clamp(min=1e-30)) for k in cpu)
+
+
+def pt_recipe_sample(rng, n):
+    """The JAX recipe's draw (tests/test_phoenix.py:271-302), a stacked batch:
+    a history of 16 favs of 4 liked authors, 8 candidates, fav iff liked."""
+    cfg, C = PT_RECIPE, PT_RECIPE_C
+    L, nb = cfg.max_history, cfg.author_buckets
+    out = []
+    for _ in range(n):
+        liked = rng.choice(nb, 4, replace=False)
+        seq = phoenix.UserActionSequence(
+            torch.full((L,), FAV, dtype=torch.int32), torch.from_numpy(rng.choice(liked, L).astype(np.int32)),
+            torch.from_numpy((np.arange(L)[::-1] * 60).astype(np.int32)), torch.ones(L, dtype=torch.bool))
+        c_auth = rng.choice(nb, C)
+        lab = np.zeros((C, phoenix.NUM_ACTIONS), np.float32)
+        lab[:, FAV] = np.isin(c_auth, liked)
+        out.append((seq, phoenix.CandidateFeatures(torch.from_numpy(c_auth.astype(np.int32)),
+                                                   torch.zeros((C, phoenix.NUM_BOOL_FEATURES)),
+                                                   torch.ones(C, dtype=torch.bool)), torch.from_numpy(lab)))
+    return pt_stack(out)
+
+
+def pt_fav_weighted_loss(model, batch):
+    """The JAX recipe's loss: positive-weighted BCE on the fav head
+    (tests/test_phoenix.py:321-330)."""
+    seq, cands, labels = batch
+    lg, y = model(seq, cands)[..., FAV], labels[..., FAV]
+    ce = torch.clamp(lg, min=0) - lg * y + torch.log1p(torch.exp(-lg.abs()))
+    return torch.mean(ce * torch.where(y > 0, 3.0, 1.0)), {}
+
+
+def pt_recipe(dev):
+    """The JAX package's AUC recipe at its own shape on the card: 300 adam
+    1e-3 steps of 32 users through the Trainer, then the fav head's AUC over
+    64 new users."""
+    rng = np.random.default_rng(0)
+    model = phoenix.PhoenixModel(PT_RECIPE, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    tr = Trainer(pt_fav_weighted_loss, model, TrainerConfig(learning_rate=1e-3, optimizer="adam"), device=dev)
+    t0 = time.perf_counter()
+    for _ in range(PT_RECIPE_STEPS):
+        tr.train_step(pt_recipe_sample(rng, PT_RECIPE_B))
+    seq, cands, labels = put_batch(pt_recipe_sample(rng, PT_RECIPE_EVAL), dev)
+    with torch.no_grad():
+        probs = torch.sigmoid(model(seq, cands)[..., FAV])
+    auc = float(metrics.auc(probs.reshape(-1), labels[..., FAV].reshape(-1)))
+    require(auc > PT_RECIPE_AUC, f"phoenix_training: the JAX recipe's AUC {auc:.4f} (want > {PT_RECIPE_AUC})")
+    return auc, time.perf_counter() - t0
+
+
+def pt_restore_bits(dev, tr, batch):
+    """Save ``tr``; its next step on ``batch``, the same step of a fresh
+    Trainer restored from the save, and of ``tr`` restored: the restored
+    params and moments the saved bits, all three steps bit-equal."""
+    tr.save()
+    saved = trainer_state(tr)
+    tr.train_step(batch)
+    after = params_of(tr.model)
+    fresh = Trainer(pt_loss, phoenix.PhoenixModel(PT_CONFIG, device=dev), tr.config, device=dev)
+    fresh.restore()
+    got = trainer_state(fresh)
+    require(fresh.step == tr.step - 1 and got.keys() == saved.keys()
+            and all(torch.equal(got[k], saved[k]) for k in saved),
+            "phoenix_training: the restored step, params or optimizer state are not the saved bits")
+    fresh.train_step(batch)
+    tr.restore()
+    tr.train_step(batch)
+    for other in (fresh, tr):
+        require(all(torch.equal(v, after[k]) for k, v in params_of(other.model).items()),
+                "phoenix_training: two equal steps from one saved state are not bit-equal")
+
+
+def phase_phoenix_training(dev):
+    """Phoenix trained at full width on a served log through the one-device
+    Trainer: the counted step, the card against the CPU, steps bit-equal run
+    to run and across a save and restore, the round trip's bars and the
+    preference AUC, the JAX recipe's AUC, the step's time by part and both
+    kernels at its shapes. Returns the path's launches."""
+    t_start = time.perf_counter()
+    print(f"phoenix_training: {card_line()}")
+    cfg = PT_CONFIG
+    model = phoenix.PhoenixModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(PT_SEED))
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    examples, favs = pt_serve(dev, model, range(PT_USERS + PT_HELD_OUT))
+    serve_s = time.perf_counter() - t0
+    require(all(bool(s.valid.all()) for s, _, _ in examples), "phoenix_training: a history is not full")
+    batches = [put_batch(pt_stack(examples[i:i + PT_B]), dev) for i in range(0, PT_USERS, PT_B)]
+    held_out = put_batch(pt_stack(examples[PT_USERS:]), dev)
+    n_favs = sum(1 for u, _ in favs if u < PT_USERS)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        tr = Trainer(pt_loss, model, TrainerConfig(learning_rate=PT_LR, optimizer="adam", checkpoint_dir=root),
+                     device=dev)
+        out, launches = counted(lambda: tr.train_step(batches[0]))
+        require(launches == PT_LAUNCHES, f"phoenix_training: a step launched {launches}, want {PT_LAUNCHES}")
+        losses = [float(out["loss"])]
+        worst = pt_card_against_cpu(dev, init, batches[0])
+        step_ms = None
+        while tr.step < PT_EPOCHS * len(batches):
+            b = batches[tr.step % len(batches)]
+            if step_ms is None and tr.step >= 2 * len(batches):  # a window of loop-carried steps, warm
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(PT_TIMED):
+                    tr.train_step(batches[tr.step % len(batches)])
+                end.record()
+                end.synchronize()
+                step_ms = start.elapsed_time(end) / PT_TIMED
+                continue
+            losses.append(float(tr.train_step(b)["loss"]))
+        last = losses[-1]
+        require(np.isfinite(last) and last < PT_RETRAIN * losses[0],
+                f"phoenix_training: the loss went {losses[0]:.4f} -> {last:.4f} (want below {PT_RETRAIN} x the first)")
+        p, y = pt_fav_split(model, batches[0])
+        engaged, unengaged = float(p[y > 0].mean()), float(p[y == 0].mean())
+        require(engaged > unengaged, f"phoenix_training: engaged candidates' mean fav probability {engaged:.4f} not "
+                                     f"above the unengaged ones' {unengaged:.4f}")
+        hp, hy = pt_fav_split(model, held_out)
+        pref_auc = float(metrics.auc(hp, hy))
+        pt_restore_bits(dev, tr, batches[0])
+        parts, top = embedding_step_breakdown(model, pt_loss, tr.optimizer, batches[1])
+        inputs = collapse_inputs(tr, batches[1])
+    seq, cands, _ = batches[1]
+    ids = torch.remainder(torch.cat([seq.author_hashes, cands.author_hashes], dim=1), cfg.author_buckets)
+    gather_t = time_gather(ids.reshape(-1).to(torch.int32).contiguous(), (model.author_emb.embedding.detach(),),
+                           f"Phoenix author_emb at the training step's shape ({PT_B} x ({cfg.max_history} + {PT_C}) "
+                           f"ids x {cfg.d_model * 4} B from [{cfg.author_buckets}, {cfg.d_model}] f32)")
+    require(len(inputs) == 1, f"phoenix_training: a step collapsed {len(inputs)} table gradients, want 1")
+    rows_t = time_collapse_rows(*inputs[0], f"Phoenix author_emb's gradient ({inputs[0][0].numel()} slots into "
+                                            f"[{cfg.author_buckets}, {cfg.d_model}])")
+    recipe_auc, recipe_s = pt_recipe(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phoenix_training: PhoenixConfig() (d {cfg.d_model}, {cfg.n_layers} layers, {cfg.n_heads} heads, L "
+          f"{cfg.max_history}, {cfg.author_buckets} buckets, {cfg.dtype}; {n_params / 1e6:.2f}M f32 params), "
+          f"{PT_USERS + PT_HELD_OUT} requests of {PT_C} candidates served by the Phoenix scorer and logged by the "
+          f"side effect in {serve_s:.1f} s (host clock), {n_favs} planted favs in the {PT_USERS} trained requests; "
+          f"one counted step {launches}; f32 first-step gradients card vs CPU (B={PT_B}, TF32 off) within {worst:.3g} "
+          f"of each parameter's largest entry (limit {GRAD_SCALE_TOL} + {PT_GRAD_FLOOR:g} of the largest gradient's); "
+          f"adam {PT_LR}, B={PT_B}, {tr.step} steps: loss {losses[0]:.4f} -> {last:.4f} (bar: below {PT_RETRAIN} x); "
+          f"mean fav probability engaged {engaged:.4f} vs unengaged {unengaged:.4f}; preference AUC on "
+          f"{PT_HELD_OUT} held-out requests {pref_auc:.4f} (no bar); saved, restored into a fresh Trainer and into "
+          f"itself: the saved bits, and the next step of each bit-equal to the step taken right after the save")
+    print(f"phoenix_training: a step {step_ms:.3f} ms over {PT_TIMED} loop-carried steps (CUDA events, not a "
+          f"benchmark); device time by part (one profiler session): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.most_common()) + f"; total {sum(parts.values()):.3f} ms; "
+          "longest kernels " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    print(f"phoenix_training: the JAX recipe at its own shape (d 32, 1 layer, 2 heads, L 16, 32 buckets, f32; "
+          f"{PT_RECIPE_STEPS} steps of {PT_RECIPE_B} users, adam 1e-3) AUC {recipe_auc:.4f} on {PT_RECIPE_EVAL} new "
+          f"users (bar > {PT_RECIPE_AUC}) in {recipe_s:.1f} s; the phase {time.perf_counter() - t_start:.1f} s")
+    return {"launches": launches, "row_gather": gather_t, "run_collapse_rows": rows_t}
 
 
 def main() -> int:
@@ -7109,6 +7506,7 @@ def main() -> int:
         kernels["run_collapse_rows"] = emb["run_collapse_rows"]
         by_path["mesh"] = phase_apart("--mesh", "mesh", root, timeout=MESH_TIMEOUT)["launches"]
     by_path["mesh_training"] = phase_apart("--mesh-training", "mesh_training", timeout=MT_TIMEOUT)["launches"]
+    by_path["phoenix_training"] = phase_apart("--phoenix-training", "phoenix_training", timeout=PT_TIMEOUT)["launches"]
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
@@ -7138,7 +7536,8 @@ if __name__ == "__main__":
                     "--mesh": lambda dev: phase_mesh(dev, ROOT),
                     "--mesh-training": phase_mesh_training,
                     "--offline-simclusters": phase_offline_simclusters_alone,
-                    "--offline-simclusters-2": phase_offline_part_two}
+                    "--offline-simclusters-2": phase_offline_part_two,
+                    "--phoenix-training": phase_phoenix_training}
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-training-rank"]:

@@ -447,12 +447,133 @@ def test_local_batches_give_the_global_batch_step(world):
 def test_checkpoint_round_trip_on_a_mesh(world):
     """2x2: each rank saves its blocks; ``restore`` on the same mesh shape,
     in the same Trainer or a fresh one, gives the saved bits (params and
-    optimizer state) and the same next step; another mesh shape raises."""
+    optimizer state) and the same next step; another mesh shape restores
+    the same step (its bits: the tests below)."""
     _, outs = world
     for r in range(4):
         assert all(outs[r]["ckpt"]["same"]), outs[r]["ckpt"]
         assert outs[r]["ckpt"]["steps"] == [2]
-        assert "not ported" in outs[r]["ckpt_other_mesh"]
+        assert outs[r]["ckpt_other_mesh"]["1x4"]["step"] == 2
+
+
+RESTORES = ("1x4", "4x1", "one_device", "2x2/without_specs", "1x4/without_specs")
+
+
+def _restored_blocks(got, saved, rank, key, specs):
+    """Each restored block of ``got`` (params, Adam's moments) against the
+    saved global arrays' block of ``rank`` under the restoring mesh ``key``
+    (the whole array on one device), bit for bit; the counts int32 and equal."""
+    mesh_key = key.partition("/")[0]
+    for part in ("params", "mu", "nu"):
+        for n, want in saved[part].items():
+            block = want if mesh_key == "one_device" else _shard(want, rank, False, specs[n], mesh_key)
+            np.testing.assert_array_equal(got[part][n], block, err_msg=f"{part} {n}")
+    assert got["count"] == {n: (c, "torch.int32") for n, c in saved["count"].items()}
+    assert got["step"] == 2
+
+
+@pytest.mark.parametrize("key", RESTORES)
+def test_checkpoint_restores_on_another_mesh_with_the_saved_bits(world, key):
+    """The 2x2 checkpoint of step 2 restored on 1x4, on 4x1 and into a
+    one-device Trainer, and (as written before checkpoints recorded their
+    specs) on its own 2x2 and on 1x4 by the Trainer's rules: every rank
+    holds the saved global arrays' values in its own blocks, params and
+    Adam moments, bit for bit, the int32 count and the step."""
+    inputs, outs = world
+    specs = specs_of(inputs, "two_tower")
+    ranks = range(1) if key == "one_device" else range(4)
+    for r in ranks:
+        _restored_blocks(outs[r]["ckpt_other_mesh"][key], outs[0]["ckpt_global"], r, key, specs)
+
+
+_JAX_RESTORES = {}
+
+
+def _jax_restored_step(inputs, tmp, key):
+    """JAX's Trainer saved by orbax on 2x2 after two steps (explicit
+    two-tower, adam 1e-2), restored on the mesh of ``key`` (a 1x1 mesh and
+    the implicit model for one device) and stepped on the third batch: its
+    params. The save runs once for the file."""
+    cfg = TRAIN_CASES["two_tower_x"][2]
+    batches = inputs["batches"]["two_tower"]
+    ckpt = str(tmp / "jax_ckpt")
+    if not _JAX_RESTORES:
+        mesh, model = _mesh("2x2"), _jax_model("two_tower", True)
+        with jmesh.local_mesh(mesh):
+            jt = JaxTrainer(_jax_loss("two_tower", model), _host(inputs["params"]["two_tower"]), mesh,
+                            JAX_RULES["two_tower"], JaxTrainerConfig(**cfg, checkpoint_dir=ckpt))
+            for b in batches[:2]:
+                jt.train_step(b)
+            jt.save()
+    if key not in _JAX_RESTORES:
+        mesh_key = "1x1" if key == "one_device" else key
+        mesh, model = _mesh(mesh_key), _jax_model("two_tower", key != "one_device")
+        with jmesh.local_mesh(mesh):
+            jt = JaxTrainer(_jax_loss("two_tower", model), _host(inputs["params"]["two_tower"]), mesh,
+                            JAX_RULES["two_tower"], JaxTrainerConfig(**cfg, checkpoint_dir=ckpt))
+            jt.restore(2)
+            jt.opt_state = _replicated_scalars(jt.opt_state, mesh)  # fault 12
+            jt.train_step(batches[2])
+        _JAX_RESTORES[key] = _host(jt.params)
+    return _JAX_RESTORES[key]
+
+
+def _replicated_scalars(tree, mesh):
+    """``tree`` with its scalars replicated over ``mesh``: orbax restores
+    adam's count on the first device alone (fault 12)."""
+    return jax.tree_util.tree_map(
+        lambda x: jax.device_put(x, jax.sharding.NamedSharding(mesh, JP())) if np.ndim(x) == 0 else x, tree)
+
+
+def test_fault_12_jax_restore_then_step_raises_on_a_mesh(world, tmp_path_factory):
+    """In the reference: JAX's ``Trainer.restore`` on a mesh of more than one
+    device (here the 2x2 it saved on) brings adam's scalar count back on the
+    first device alone, beside params spread over the mesh, so the next
+    ``train_step`` raises. The port's restored Trainers step (above)."""
+    inputs, outs = world
+    _jax_restored_step(inputs, tmp_path_factory.getbasetemp(), "one_device")  # the 2x2 save
+    mesh, model = _mesh("2x2"), _jax_model("two_tower", True)
+    with jmesh.local_mesh(mesh):
+        jt = JaxTrainer(_jax_loss("two_tower", model), _host(inputs["params"]["two_tower"]), mesh,
+                        JAX_RULES["two_tower"], JaxTrainerConfig(**TRAIN_CASES["two_tower_x"][2],
+                                                                 checkpoint_dir=str(tmp_path_factory.getbasetemp()
+                                                                                    / "jax_ckpt")))
+        jt.restore(2)
+        with pytest.raises(ValueError, match="incompatible devices"):
+            jt.train_step(inputs["batches"]["two_tower"][2])
+    for r in range(4):
+        assert all("next" in outs[r]["ckpt_other_mesh"][key] for key in RESTORES)
+
+
+@pytest.mark.parametrize("key", ["1x4", "4x1", "one_device"])
+def test_restored_step_follows_jax_orbax_restore(world, tmp_path_factory, key):
+    """The step after the restore against JAX's own: orbax restores the 2x2
+    checkpoint on the same mesh shape (``StandardRestore`` reshards) and
+    takes the same batch; each rank's blocks within the Adam rule of JAX's
+    (three steps in all)."""
+    inputs, outs = world
+    params = _jax_restored_step(inputs, tmp_path_factory.getbasetemp(), key)
+    lay, specs = layout(inputs, "two_tower"), specs_of(inputs, "two_tower")
+    for r in range(1) if key == "one_device" else range(4):
+        want = {n: (np.asarray(_leaf(params, jn)).T if tr else np.asarray(_leaf(params, jn)))
+                if key == "one_device" else _shard(_leaf(params, jn), r, tr, specs[n], key)
+                for n, (jn, tr) in lay.items()}
+        assert_adam_rule(outs[r]["ckpt_other_mesh"][key]["next"], want, STEPS,
+                         TRAIN_CASES["two_tower_x"][2]["learning_rate"])
+
+
+def test_restore_of_other_names_or_shapes_raises(world):
+    """A Trainer whose parameters are named otherwise (TwHIN on 1x4) or
+    shaped otherwise (48 users, one device) refuses the 2x2 checkpoint with
+    a ValueError naming both layouts and the parameters apart."""
+    _, outs = world
+    for r in range(4):
+        got = outs[r]["ckpt_other_mesh"]
+        assert "saved on a {'data': 2, 'model': 2} mesh" in got["error/names"]
+        assert "here on a {'data': 1, 'model': 4} mesh" in got["error/names"]
+        assert "relation_table" in got["error/names"] and "user_tower" in got["error/names"]
+        assert "here on one device" in got["error/shapes"] and "user_table" in got["error/shapes"]
+        assert "(48, 8)" in got["error/shapes"] and "(32, 8)" in got["error/shapes"]
 
 
 def test_export_on_a_mesh_writes_the_jax_trainers_npz(world, tmp_path):

@@ -206,3 +206,27 @@ def test_shard_tree_matches_jax(runs, key):
         np.testing.assert_array_equal(got["pair"][1], tree["pair"][1])
         assert float(got["a"]["s"]) == 2.0
         assert "not divisible" in outs[r][f"indivisible/{key}"]
+
+
+BLOCK_SPECS = [P("model", None), P(None, "model"), P(("data", "model"), None), P("data", "model"),
+               P(None, ("model", "data")), P()]
+
+
+@pytest.mark.parametrize("key", KEYS + ["1x1"])
+@pytest.mark.parametrize("spec", BLOCK_SPECS, ids=str)
+def test_block_slices_are_where_jax_places_each_block(key, spec):
+    """``block_slices`` (the region a checkpoint restore copies for each
+    rank) against the index JAX's ``NamedSharding`` gives the shard on the
+    device of the same mesh coordinates; ``global_shape`` from one block's
+    shape back to the global one."""
+    d, m = (int(v) for v in key.split("x"))
+    mesh = jmesh.make_mesh(jmesh.MeshSpec(data=d, model=m), jax.devices()[:d * m])
+    shape = (8, 12)
+    x = jax.device_put(jnp.zeros(shape), NamedSharding(mesh, JP(*spec)))
+    sizes = {"data": d, "model": m}
+    for shard in x.addressable_shards:
+        (i, j), = np.argwhere(mesh.devices == shard.device)
+        got = partition.block_slices(shape, spec, sizes, {"data": int(i), "model": int(j)})
+        assert tuple((s.start, s.stop) for s in got) == tuple(
+            (s.start or 0, shape[k] if s.stop is None else s.stop) for k, s in enumerate(shard.index))
+        assert partition.global_shape(shard.data.shape, spec, sizes) == shape

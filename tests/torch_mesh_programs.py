@@ -512,6 +512,8 @@ def mesh_training(inputs):
         for b in batches[:2]:
             tr.train_step(b)
         tr.save()
+        out["ckpt_global"] = _global_state(tr)
+        _drop_specs(os.path.join(ckpt, "2"), os.path.join(inputs["dir"], "ckpt_without_specs", "2"))
         saved = (tr.model.state_dict(), tr.optimizer.state_dict())
         saved = (copy.deepcopy(saved[0]), copy.deepcopy(saved[1]))
         tr.train_step(batches[2])
@@ -533,13 +535,89 @@ def mesh_training(inputs):
         tr = trainer("two_tower", False, cfg, m)
         got = tr.fit(iter(batches * 4), num_steps=12, eval_fn=lambda model: {"m": next(evals)}, eval_every=2)
         out["fit"] = {"step": tr.step, "best": tr.best_or_latest_step(), "m": got["m"]}
-    m = meshes["1x4"]
-    if m is not None:  # saved on 2x2: another mesh shape
-        tr = trainer("two_tower", True, dict(checkpoint_dir=os.path.join(inputs["dir"], "ckpt")), m)
-        out["ckpt_other_mesh"] = _error(lambda: tr.restore(2))
+    out["ckpt_other_mesh"] = _restore_elsewhere(inputs, meshes, trainer, Trainer, TrainerConfig)
     m = meshes["2x2"]
     if m is not None:
         out["drt"] = _drt(inputs, m, DataRecordTrainer, DataRecordTrainerConfig, TrainerConfig)
+    return out
+
+
+def _copy(t):
+    """A numpy copy of ``t`` (``_np`` of a CPU tensor shares its memory,
+    which a later step updates in place)."""
+    return np.array(_np(t), copy=True)
+
+
+def _global_state(tr):
+    """A sharded Trainer's params and Adam moments as global arrays, and its
+    Adam count (collective)."""
+    from the_algorithm_tpu_torch.core import partition as part
+
+    out = {"params": {}, "mu": {}, "nu": {}, "count": {}}
+    for n, p in tr.model.named_parameters():
+        out["params"][n] = _copy(part.gather_block(p, tr.mesh, tr.specs[n]))
+        st = tr.optimizer.state[p]
+        for k in ("mu", "nu"):
+            out[k][n] = _copy(part.gather_block(st[k], tr.mesh, tr.specs[n]))
+        out["count"][n] = int(st["count"])
+    return out
+
+
+def _local_state(tr):
+    """A Trainer's params and Adam moments as it holds them (a rank's blocks,
+    or the whole arrays on one device), its counts and its step."""
+    names = {p: n for n, p in tr.model.named_parameters()}
+    st = {names[p]: s for p, s in tr.optimizer.state.items()}
+    return {"params": {n: _copy(p) for n, p in tr.model.named_parameters()},
+            "mu": {n: _copy(s["mu"]) for n, s in st.items()}, "nu": {n: _copy(s["nu"]) for n, s in st.items()},
+            "count": {n: (int(s["count"]), str(s["count"].dtype)) for n, s in st.items()}, "step": tr.step}
+
+
+def _drop_specs(src, dst):
+    """A copy of a step directory as it was written before checkpoints
+    recorded their specs (rank 0 writes it)."""
+    import os
+
+    if dist.get_rank() == 0:
+        os.makedirs(dst, exist_ok=True)
+        for name in sorted(os.listdir(src)):
+            state = torch.load(os.path.join(src, name))
+            del state["specs"]
+            torch.save(state, os.path.join(dst, name))
+    dist.barrier()
+
+
+def _restore_elsewhere(inputs, meshes, trainer, Trainer, TrainerConfig):
+    """The 2x2 checkpoint of step 2 restored on 1x4, on 4x1 and into a
+    one-device Trainer (the implicit two-tower: the explicit row exchange
+    needs a mesh): each one's state after the restore and its params after
+    the next step; the same from the copy without specs, on 2x2 and 1x4;
+    the errors of Trainers whose names (TwHIN) or shapes (48 users) differ."""
+    import os
+
+    from the_algorithm_tpu_torch.models import two_tower
+
+    ckpt = os.path.join(inputs["dir"], "ckpt")
+    cfg = dict(learning_rate=1e-2, checkpoint_dir=ckpt)
+    batch = inputs["batches"]["two_tower"][2]
+    out = {}
+    for key in ("1x4", "4x1", "one_device", "2x2/without_specs", "1x4/without_specs"):
+        mesh_key, _, kind = key.partition("/")
+        c = dict(cfg, checkpoint_dir=os.path.join(inputs["dir"], "ckpt_without_specs")) if kind else cfg
+        if key == "one_device":
+            model, _ = port_model("two_tower", inputs["params"]["two_tower"])
+            tr = Trainer(port_loss("two_tower"), model, TrainerConfig(**c), device="cpu")
+        else:
+            tr = trainer("two_tower", True, c, meshes[mesh_key])
+        tr.restore()
+        got = _local_state(tr)
+        tr.train_step(batch)
+        got["next"] = {n: _np(p) for n, p in tr.model.named_parameters()}
+        out[key] = got
+    other = two_tower.TwoTower(two_tower.TwoTowerConfig(**dict(SMALL["two_tower"], num_users=48)), device="cpu")
+    out["error/shapes"] = _error(lambda: Trainer(port_loss("two_tower"), other, TrainerConfig(**cfg),
+                                                 device="cpu").restore(2))
+    out["error/names"] = _error(lambda: trainer("twhin", True, cfg, meshes["1x4"]).restore(2))
     return out
 
 

@@ -127,6 +127,32 @@ def local_block(x, mesh: Mesh, spec: PartitionSpec) -> torch.Tensor:
     return t.contiguous().to(mesh.device)
 
 
+def block_slices(shape, spec: PartitionSpec, sizes: Dict[str, int], coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """Where the block of the mesh position ``coords`` lies in a global
+    array of ``shape`` under ``spec``, on a mesh of axis ``sizes`` (the
+    block :func:`local_block` takes there): one slice a dim."""
+    out = []
+    for dim, n in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        pos, blocks = 0, 1
+        for axis in () if entry is None else (entry,) if isinstance(entry, str) else entry:
+            pos, blocks = pos * sizes[axis] + coords[axis], blocks * sizes[axis]
+        per = n // blocks
+        out.append(slice(pos * per, (pos + 1) * per))
+    return tuple(out)
+
+
+def global_shape(block_shape, spec: PartitionSpec, sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """The global array's shape from one block's under ``spec`` on a mesh
+    of axis ``sizes``."""
+    out = list(block_shape)
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            for axis in (entry,) if isinstance(entry, str) else entry:
+                out[dim] *= sizes[axis]
+    return tuple(out)
+
+
 def gather_block(block: torch.Tensor, mesh: Mesh, spec: PartitionSpec) -> torch.Tensor:
     """The global array from every rank's ``block`` under ``spec``
     (collective: every rank of the mesh calls it)."""

@@ -22,12 +22,36 @@ The forward is the flax model's, operation for operation:
 - the qkv product splits as ``reshape(L, 3H, D/H)`` then thirds along the
   head axis;
 - ``author_emb`` (65,536 × 256 f32 at full width) is shared by the history
-  and the candidate tokens and read once a forward, both token sets
-  together, through :func:`~the_algorithm_tpu_torch.ops.gather.table_read`
-  (one ``row_gather`` launch on the card). The small action, age and
-  position tables are plain indexing. ``nn.Embed(dtype=bf16)`` casts the
-  f32 table and then reads it; reading f32 rows and then casting gives the
-  same bits.
+  and the candidate tokens and read once a forward, both token sets of
+  every request together, through
+  :func:`~the_algorithm_tpu_torch.ops.gather.table_read` (one ``row_gather``
+  launch on the card; its gradient one ``run_collapse_rows`` launch). The
+  small action, age and position tables are plain indexing.
+  ``nn.Embed(dtype=bf16)`` casts the f32 table and then reads it; reading
+  f32 rows and then casting gives the same bits.
+
+The forward takes one request (``seq`` [L], ``cands`` [C] → [C, A], as
+serving calls it) or a batch (a leading axis: [B, L], [B, C] → [B, C, A]),
+the counterpart of ``jax.vmap(lambda s, c: model.apply(p, s, c))``: each
+request's masks are its own, and a batch of one gives the unbatched call's
+bits.
+
+Gradients, where they part from ``jax.grad``'s:
+
+- in bf16, flax forms a table's cotangent in bf16 (the rows of the cast
+  table), summing repeated ids in bf16 before the cast back to the f32
+  parameter. Here the rows are read in f32 and cast after the read, so the
+  cotangent reaching the table is f32 and repeated ids sum in f32:
+  ``author_emb``'s in slot order through ``run_collapse_rows``, the action
+  and age tables' through ``index_put_(accumulate=True)`` (on the card a
+  sort and one thread a run, in sorted order: no float atomics), and the
+  position table's over the batch as one reduction. The forward bits are
+  the same; the gradient is as near the f32 one as JAX's or nearer
+  (tests/test_torch_phoenix_training.py holds the bound). In f32 the two
+  agree to f32 rounding.
+- an all-padding history attends uniformly on both sides (-1e9 plus a
+  product rounds to -1e9 in f32), and its gradient flows through the same
+  softmax: finite and equal.
 
 :func:`params_from_flax` turns the JAX package's flax params into this
 module's ``state_dict`` and :func:`params_to_flax` is its inverse, bit for
@@ -176,23 +200,26 @@ class Embed(nn.Module):
 
 
 def _key_mask(valid: torch.Tensor) -> torch.Tensor:
-    """[1, 1, L] additive f32 mask: 0 for a valid key, -1e9 for an invalid one."""
+    """[B, 1, 1, L] additive f32 mask from ``valid`` [B, L]: 0 for a valid
+    key, -1e9 for an invalid one."""
     zero = torch.zeros((), dtype=torch.float32, device=valid.device)
-    return torch.where(valid[None, None, :], zero, zero + MASK_NEG)
+    return torch.where(valid[:, None, None, :], zero, zero + MASK_NEG)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, dtype) -> torch.Tensor:
-    """The JAX package's ``_attend``: q [Tq, H, d], k and v [Tk, H, d], an
-    additive f32 mask broadcast to [H, Tq, Tk] → [Tq, H, d]."""
+    """The JAX package's ``_attend`` over a batch: q [B, Tq, H, d], k and v
+    [B, Tk, H, d], an additive f32 mask broadcast to [B, H, Tq, Tk] →
+    [B, Tq, H, d]."""
     d = q.shape[-1]
-    logits = torch.einsum("qhd,khd->hqk", q, k).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     logits = logits / np.float32(np.sqrt(d)) + mask
     w = torch.softmax(logits, dim=-1).to(dtype)
-    return torch.einsum("hqk,khd->qhd", w, v)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 class Block(nn.Module):
-    """One pre-LN transformer block over [L, D] (flax ``Block``; its params
+    """One pre-LN transformer block over [B, L, D] (flax ``Block`` under
+    ``vmap``; its params
     keep the flax names: ``LayerNorm_0``, ``qkv``, ``proj``, ``LayerNorm_1``,
     ``mlp_up``, ``mlp_down``)."""
 
@@ -208,17 +235,17 @@ class Block(nn.Module):
         self.mlp_down = Dense(4 * D, D, True, dtype, device, generator)
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        L, D = x.shape
+        B, L, D = x.shape
         H, dt = self.n_heads, self.dtype
         h = self.LayerNorm_0(x).to(dt)
-        qkv = self.qkv(h).reshape(L, 3 * H, D // H)
-        q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
+        qkv = self.qkv(h).reshape(B, L, 3 * H, D // H)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
         mask = _key_mask(valid)
         if self.causal:
             causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
             zero = torch.zeros((), dtype=torch.float32, device=x.device)
             mask = mask + torch.where(causal[None], zero, zero + MASK_NEG)
-        a = _attend(q, k, v, mask, dt).reshape(L, D)
+        a = _attend(q, k, v, mask, dt).reshape(B, L, D)
         x = x + self.proj(a)
         h = self.LayerNorm_1(x).to(dt)
         h = F.gelu(self.mlp_up(h), approximate="tanh")
@@ -256,38 +283,47 @@ class PhoenixModel(nn.Module):
                              persistent=False)
 
     def forward(self, seq: UserActionSequence, cands: CandidateFeatures) -> torch.Tensor:
+        """Action logits f32: [C, NUM_ACTIONS] for one request (``seq`` [L],
+        ``cands`` [C]), [B, C, NUM_ACTIONS] for a batch ([B, L], [B, C])."""
+        if seq.action_ids.dim() == 2:
+            return self._forward(seq, cands)
+        return self._forward(UserActionSequence(*(t[None] for t in seq)),
+                             CandidateFeatures(*(t[None] for t in cands)))[0]
+
+    def _forward(self, seq: UserActionSequence, cands: CandidateFeatures) -> torch.Tensor:
         cfg = self.config
         dt, D, H = cfg.compute_dtype, cfg.d_model, cfg.n_heads
-        L = seq.action_ids.shape[0]
-        # one author_emb read for both token sets (% is floor-mod, as in JAX)
-        hashes = torch.cat([seq.author_hashes, cands.author_hashes]).to(torch.int32)
+        B, L = seq.action_ids.shape
+        # one author_emb read for both token sets of every request (% is floor-mod, as in JAX)
+        hashes = torch.cat([seq.author_hashes, cands.author_hashes], dim=1).to(torch.int32)
         auth = table_read(self.author_emb.embedding, torch.remainder(hashes, cfg.author_buckets)).to(dt)
-        auth_hist, auth_cand = auth[:L], auth[L:]
+        auth_hist, auth_cand = auth[:, :L], auth[:, L:]
         age_bucket = torch.searchsorted(self.age_bounds, seq.age_s.to(torch.int32).contiguous(), right=False)
         x = (self.action_emb.embedding[seq.action_ids.long()].to(dt) + auth_hist
              + self.age_emb.embedding[age_bucket].to(dt) + self.pos_emb.to(dt))
         for i in range(cfg.n_layers):
             x = getattr(self, f"enc_{i}")(x, seq.valid)
-        x = self.enc_ln(x).to(dt)  # [L, D]
+        x = self.enc_ln(x).to(dt)  # [B, L, D]
 
         # candidate query tokens
         cq = auth_cand + self.bool_proj(cands.bool_features.to(dt))
-        cq = self.cand_ln(cq).to(dt)  # [C, D]
+        cq = self.cand_ln(cq).to(dt)  # [B, C, D]
 
         # cross attention: candidates read the encoded history
-        q = self.xq(cq).reshape(-1, H, D // H)
-        k = self.xk(x).reshape(-1, H, D // H)
-        v = self.xv(x).reshape(-1, H, D // H)
-        r = _attend(q, k, v, _key_mask(seq.valid), dt).reshape(-1, D)
+        q = self.xq(cq).reshape(B, -1, H, D // H)
+        k = self.xk(x).reshape(B, L, H, D // H)
+        v = self.xv(x).reshape(B, L, H, D // H)
+        r = _attend(q, k, v, _key_mask(seq.valid), dt).reshape(B, -1, D)
         r = r + cq
         h = F.gelu(self.head_mlp(self.head_ln(r).to(dt)), approximate="tanh")
-        return self.action_head(h.float())  # [C, NUM_ACTIONS]
+        return self.action_head(h.float())  # [B, C, NUM_ACTIONS]
 
 
 def predict_next_actions(model: PhoenixModel, seq: UserActionSequence, cands: CandidateFeatures) -> torch.Tensor:
-    """[C, NUM_ACTIONS] per-candidate action probabilities (masked rows 0)."""
+    """[C, NUM_ACTIONS] per-candidate action probabilities (masked rows 0);
+    [B, C, NUM_ACTIONS] for a batch."""
     probs = torch.sigmoid(model(seq, cands))
-    return probs * cands.valid[:, None]
+    return probs * cands.valid[..., None]
 
 
 def scorer_predict_fn(model: PhoenixModel) -> Callable:
@@ -309,9 +345,11 @@ def scorer_predict_fn(model: PhoenixModel) -> Callable:
 
 def multi_action_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Mean sigmoid cross-entropy over valid candidates × actions, in the JAX
-    package's formula."""
+    package's formula; logits and labels [..., C, A], valid [..., C] (a
+    batch's mean is over all its valid candidates, as the JAX formula over
+    the batch's rows flattened)."""
     ce = torch.clamp(logits, min=0.0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
-    ce = ce * valid[:, None]
+    ce = ce * valid[..., None]
     return torch.sum(ce) / torch.clamp(torch.sum(valid) * logits.shape[-1], min=1.0)
 
 

@@ -18,7 +18,9 @@ lives on. Where the JAX package differs by design:
 - the score is float32 throughout, as in the JAX package; its sums run in
   another order on each backend, so scores differ in the last bits, and
   docs whose scores lie that close may swap places;
-- ``search_sharded`` is not ported yet (it needs the multi-device layer).
+- :func:`search_sharded` runs over the port's mesh layer (``core/mesh.py``:
+  one process a rank, collectives over ``torch.distributed``) where the JAX
+  package runs one program under ``shard_map``.
 
 Behaviour kept from the JAX package on purpose: id-valued payloads of
 ``DOC_FEATURES`` are float32 (exact below 2**24); ``to_user_field`` and

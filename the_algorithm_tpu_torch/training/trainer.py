@@ -39,12 +39,17 @@ JAX ``Trainer``'s synchronous data parallelism with sharded parameters:
 Checkpoints are the port's own format: ``torch.save`` of the model's and
 the optimizer's ``state_dict`` in one file per step directory
 (``<checkpoint_dir>/<step>/state.pt``; on a mesh each rank's blocks in
-``state.<rank>.pt``, rank its position in the mesh), the newest
-``keep_checkpoints`` kept. ``restore`` on a mesh of the same shape gives the
-same bits; reshaping a checkpoint to another mesh (which JAX's orbax does)
-is not ported. :meth:`Trainer.export` writes the flat-dict npz the JAX
-Trainer writes for the same model: the same names, shapes and layouts, from
-the global arrays (on a mesh the first rank writes it).
+``state.<rank>.pt``, rank its position in the mesh, with the mesh's shape
+and each parameter's spec), the newest ``keep_checkpoints`` kept.
+``restore`` loads a checkpoint saved on one device or on a mesh of any
+shape into this Trainer's layout, as JAX's orbax ``StandardRestore`` does:
+each rank reads, from the files whose blocks cover its own, the parameter
+blocks, the optimizer state sharded like them (Adam's moments in their own
+type, the int32 count) and the step, bit for bit. A file without specs (as
+written before they were recorded) is laid out by this Trainer's rules.
+:meth:`Trainer.export` writes the flat-dict npz the JAX Trainer writes for
+the same model: the same names, shapes and layouts, from the global arrays
+(on a mesh the first rank writes it).
 """
 
 from __future__ import annotations
@@ -189,6 +194,7 @@ class Trainer:
         self.stats = stats or NullStats()
         self.mesh = mesh
         self.local_batches = local_batches
+        self._global_shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
         if mesh is None:
             self.device = resolve(device, "Trainer")
             self.model = model.to(self.device)
@@ -424,13 +430,13 @@ class Trainer:
         return "state.pt" if self.mesh is None else f"state.{self.mesh.position(JOINT_AXES)}.pt"
 
     def checkpoint_steps(self):
-        """The steps saved under ``checkpoint_dir``, ascending."""
+        """The steps saved under ``checkpoint_dir`` (on one device or on a
+        mesh of any shape), ascending."""
         root = self._ckpt_dir()
         if not os.path.isdir(root):
             return []
-        name = self._state_file()
         return sorted(int(d) for d in os.listdir(root)
-                      if d.isdigit() and os.path.exists(os.path.join(root, d, name)))
+                      if d.isdigit() and any(os.path.exists(os.path.join(root, d, f)) for f in _FIRST_FILES))
 
     def latest_step(self) -> Optional[int]:
         steps = self.checkpoint_steps()
@@ -459,6 +465,7 @@ class Trainer:
         state = {"step": self.step, "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
         if self.mesh is not None:
             state["mesh"] = dict(self.mesh.shape)
+            state["specs"] = {n: tuple(spec) for n, spec in self.specs.items()}
         torch.save(state, os.path.join(tmp, self._state_file()))
         self._barrier()
         if first:
@@ -469,18 +476,48 @@ class Trainer:
         self._barrier()
 
     def restore(self, step: Optional[int] = None) -> None:
-        """Load the checkpoint of ``step`` (the latest when None); on a mesh
-        every rank loads its blocks, saved on a mesh of the same shape."""
+        """Load the checkpoint of ``step`` (the latest when None), saved on
+        one device or on a mesh of any shape, into this Trainer's layout:
+        each rank (or the one device) gets the saved global arrays' values
+        in its own blocks, params and optimizer state, and the step. A
+        checkpoint of other parameter names or global shapes raises a
+        ValueError naming both layouts."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self._ckpt_dir()}")
-        state = torch.load(os.path.join(self._ckpt_dir(), str(step), self._state_file()), map_location=self.device)
-        if self.mesh is not None and state.get("mesh") != dict(self.mesh.shape):
-            raise ValueError(f"checkpoint of step {step} was saved on a {state.get('mesh')} mesh, not "
-                             f"{dict(self.mesh.shape)}: reshaping a checkpoint across mesh shapes is not ported")
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        saved = _SavedCheckpoint(os.path.join(self._ckpt_dir(), str(step)), getattr(self, "specs", None))
+        names = [n for n, _ in self.model.named_parameters()]
+        shapes = {n: saved.global_shape(n) for n in saved.names}
+        here = {n: self._global_shapes.get(n, tuple(t.shape)) for n, t in self.model.state_dict().items()}
+        if shapes != here:
+            apart = sorted(n for n in set(shapes) | set(here) if shapes.get(n) != here.get(n))
+            raise ValueError(f"checkpoint of step {step} does not fit this Trainer: saved on {saved.layout()}, "
+                             f"{ {n: shapes.get(n) for n in apart} }; here on {self._layout()}, "
+                             f"{ {n: here.get(n) for n in apart} } (global shapes, None where absent)")
+        if self.mesh is None:
+            sizes, coords, specs = {}, {}, {}
+        else:
+            sizes = dict(self.mesh.shape)
+            coords = {a: self.mesh.coord(a) for a in JOINT_AXES}
+            specs = self.specs
+        first = saved.file(0)
+        model_state = dict(first["model"])
+        opt_state = {}
+        for i, n in enumerate(names):
+            where = partition.block_slices(shapes[n], specs.get(n, partition.P()), sizes, coords)
+            model_state[n] = saved.block(n, where, lambda f, n=n: f["model"][n])
+            # the optimizer's tensors shaped like the param's block are sharded like it (moments); the rest
+            # (Adam's count) is the same in every file
+            state = first["optimizer"]["state"].get(i)
+            if state is not None:
+                opt_state[i] = {k: saved.block(n, where, lambda f, i=i, k=k: f["optimizer"]["state"][i][k])
+                                if v.shape == first["model"][n].shape else v for k, v in state.items()}
+        self.model.load_state_dict(model_state)
+        self.optimizer.load_state_dict({"state": opt_state, "param_groups": first["optimizer"]["param_groups"]})
         self.step = step
+
+    def _layout(self) -> str:
+        return "one device" if self.mesh is None else f"a {self.mesh.shape} mesh"
 
     # -- export (SavedModel-export analog: the train→serve artifact) ---------
 
@@ -510,6 +547,75 @@ class Trainer:
             model_registry.save_params_npz(version_dir, flat)
         self._barrier()
         return flat
+
+
+_FIRST_FILES = ("state.pt", "state.0.pt")  # the file a step directory saved on one device or on a mesh starts with
+
+
+class _SavedCheckpoint:
+    """One step directory's files, read lazily (memory-mapped on the CPU)
+    and each at most once: the saved mesh shape and specs (a one-device
+    file: one whole block; a mesh file without specs: ``specs``, the
+    reader's own), and any region of a parameter's (or a tensor of its
+    optimizer state's) global array from the saved blocks that cover it."""
+
+    def __init__(self, root: str, specs: Optional[Dict[str, partition.PartitionSpec]]):
+        self.root = root
+        self.one_device = os.path.exists(os.path.join(root, "state.pt"))
+        self._files: Dict[int, Any] = {}
+        first = self.file(0)
+        self.sizes = dict(first.get("mesh") or {a: 1 for a in JOINT_AXES})
+        self.specs = first.get("specs", {} if self.one_device else specs)
+        if self.specs is None and any(v > 1 for v in self.sizes.values()):
+            raise ValueError(f"{root} was saved on a {self.sizes} mesh without its specs: restore it on a mesh "
+                             "with the partition rules it was saved under")
+        self.specs = self.specs or {}
+        self.count = 1 if self.one_device else int(np.prod(list(self.sizes.values())))
+        self.names = list(first["model"])  # params and buffers
+
+    def file(self, j: int) -> Dict[str, Any]:
+        if j not in self._files:
+            name = "state.pt" if self.one_device else f"state.{j}.pt"
+            self._files[j] = torch.load(os.path.join(self.root, name), map_location="cpu", mmap=True)
+        return self._files[j]
+
+    def coords(self, j: int) -> Dict[str, int]:
+        """The mesh position of file ``j`` (its rank's joint position, the first axis major)."""
+        out = {}
+        for axis in reversed(JOINT_AXES):
+            j, out[axis] = divmod(j, self.sizes[axis])
+        return out
+
+    def layout(self) -> str:
+        return "one device" if self.one_device else f"a {self.sizes} mesh"
+
+    def spec(self, name: str) -> partition.PartitionSpec:
+        return partition.P(*self.specs.get(name, ()))
+
+    def global_shape(self, name: str) -> Tuple[int, ...]:
+        return partition.global_shape(self.file(0)["model"][name].shape, self.spec(name), self.sizes)
+
+    def block(self, name: str, where: Tuple[slice, ...], tensor_of: Callable[[Dict[str, Any]], torch.Tensor]):
+        """The region ``where`` of parameter ``name``'s global array (or of
+        a tensor of the same layout: ``tensor_of`` picks it from a file),
+        copied from each distinct saved block that meets it."""
+        out = None
+        seen = set()
+        for j in range(self.count):
+            src = partition.block_slices(self.global_shape(name), self.spec(name), self.sizes, self.coords(j))
+            key = tuple((s.start, s.stop) for s in src)
+            if key in seen:
+                continue  # a replica of a block already copied
+            seen.add(key)
+            meet = [slice(max(a.start, b.start), min(a.stop, b.stop)) for a, b in zip(src, where)]
+            if any(m.start >= m.stop for m in meet):
+                continue
+            t = tensor_of(self.file(j))
+            if out is None:
+                out = torch.empty(tuple(w.stop - w.start for w in where), dtype=t.dtype)
+            out[tuple(slice(m.start - w.start, m.stop - w.start) for m, w in zip(meet, where))] = \
+                t[tuple(slice(m.start - s.start, m.stop - s.start) for m, s in zip(meet, src))]
+        return out
 
 
 def make_auc_per_head_eval(
