@@ -3,6 +3,8 @@ dynamic batcher, npz model registry with version hot-swap, and the HTTP
 predict front serving a small port MaskNet."""
 
 import json
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 import torch_port_util  # noqa: F401  (one torch thread per worker)
+from the_algorithm_tpu_torch.core.metrics import StatsReceiver
 from the_algorithm_tpu_torch.models import masknet
 from the_algorithm_tpu_torch.serving.batcher import BatcherConfig, DynamicBatcher, RequestBatcher
 from the_algorithm_tpu_torch.serving.model_registry import (
@@ -80,6 +83,42 @@ def test_request_batcher_propagates_errors():
             rb.serve("x", timeout=5)
     finally:
         rb.close()
+
+
+HOLD_S = 0.2
+
+
+@pytest.mark.parametrize("kind", ["request", "dynamic"])
+def test_batchers_record_the_queue_wait_a_held_batch_causes(kind):
+    """One-item batches; the first is held HOLD_S in the model, so the two
+    queued behind it wait at least that long, and the first hardly at all."""
+    started, release = threading.Event(), threading.Event()
+
+    def hold(x):
+        started.set()
+        release.wait(5)
+        return x
+
+    stats = StatsReceiver()
+    config = BatcherConfig(max_batch_size=1, max_delay_ms=0.0)
+    if kind == "request":
+        b, item = RequestBatcher(hold, config, stats), "x"
+    else:
+        b, item = DynamicBatcher(hold, config, stats), np.zeros((1, 3), np.float32)
+    try:
+        futs = [b.submit(item)]
+        assert started.wait(5)
+        futs += [b.submit(item) for _ in range(2)]
+        time.sleep(HOLD_S)
+        release.set()
+        for f in futs:
+            f.result(timeout=5)
+    finally:
+        b.close()
+    waits = stats.stat_summary("queue_wait_ms", percentiles=(0, 50, 100))
+    assert waits["count"] == 3.0
+    assert waits["p0"] < HOLD_S * 1e3 / 2 and waits["p50"] >= HOLD_S * 1e3 * 0.95
+    assert "queue_wait_ms_count 3" in stats.export_prometheus()
 
 
 def test_registry_swaps_to_the_latest_npz_version(tmp_path):

@@ -10,44 +10,65 @@ navi's Prometheus histograms ``navi/navi/src/metrics.rs:268-290``). Here a
 process-local registry provides scoped counters / gauges / stats (histogram
 percentiles), a ``time`` context, and a Prometheus-style text export for the
 serving edge.
+
+:func:`span` names a section of the program in an operator's
+``torch.profiler`` trace; ``StatsReceiver.time`` opens one around the
+section it times.
 """
 
 from __future__ import annotations
 
-import bisect
+import contextlib
+import random
 import threading
 import time as _time
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence
 
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a ``torch.profiler``
+    session collects on this thread, so the section lands in the profile's
+    trace on the device operations' clock; otherwise one shared null
+    context, which creates no ``RecordFunction`` and reads no clock."""
+    return record_function(name) if _profiler_enabled() else _OFF
+
 
 class _Stat:
-    """Bounded-reservoir value distribution with percentile readout."""
+    """Value distribution with percentile readout over a uniform sample of
+    at most ``cap`` values (Algorithm R, seeded per stat, so a stream reads
+    the same percentiles every run). Values are kept unsorted and sorted
+    when read."""
 
-    __slots__ = ("values", "count", "total", "_cap")
+    __slots__ = ("values", "count", "total", "_cap", "_rng")
 
     def __init__(self, cap: int = 4096):
         self.values: List[float] = []
         self.count = 0
         self.total = 0.0
         self._cap = cap
+        self._rng = random.Random(0)
 
     def add(self, v: float) -> None:
         self.count += 1
         self.total += v
         if len(self.values) < self._cap:
-            bisect.insort(self.values, v)
-        else:
-            # reservoir-ish: replace a deterministic slot to stay bounded
-            idx = self.count % self._cap
-            self.values.pop(idx)
-            bisect.insort(self.values, v)
+            self.values.append(v)
+        else:  # the count-th value replaces a kept one with probability cap / count
+            slot = self._rng.randrange(self.count)
+            if slot < self._cap:
+                self.values[slot] = v
 
     def percentile(self, p: float) -> float:
         if not self.values:
             return 0.0
-        idx = min(len(self.values) - 1, int(p / 100.0 * len(self.values)))
-        return self.values[idx]
+        kept = sorted(self.values)
+        return kept[min(len(kept) - 1, int(p / 100.0 * len(kept)))]
 
     @property
     def mean(self) -> float:
@@ -94,12 +115,14 @@ class StatsReceiver:
 
     @contextmanager
     def time(self, name: str):
-        """Record elapsed milliseconds into a stat (mirrors ``Stats.track``)."""
-        t0 = _time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stat(name + "_ms", (_time.perf_counter() - t0) * 1e3)
+        """Record elapsed milliseconds into a stat (mirrors ``Stats.track``),
+        inside a :func:`span` of the stat's scoped name."""
+        with span(self._key(name)):
+            t0 = _time.perf_counter()
+            try:
+                yield
+            finally:
+                self.stat(name + "_ms", (_time.perf_counter() - t0) * 1e3)
 
     # -- readout ------------------------------------------------------------
 

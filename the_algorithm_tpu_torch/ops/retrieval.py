@@ -8,6 +8,11 @@ computes. The scan per query: fetch its N cluster rows (one
 index tables) → multiply → dedup by tweet id (stable sort, then
 :func:`~the_algorithm_tpu_torch.ops.seg_scan.run_collapse_sorted`) →
 normalize → mask → top-X.
+
+Each stage runs in a :func:`~the_algorithm_tpu_torch.core.metrics.span`
+(``retrieval.multiget``, ``.scan``, ``.sort``, ``.collapse``, ``.score``,
+``.top_k``), so an operator's ``torch.profiler`` trace puts every device
+operation of a batch under the stage that launched it.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from the_algorithm_tpu_torch.core.metrics import span
 from the_algorithm_tpu_torch.ops import sparse
 from the_algorithm_tpu_torch.ops.gather import jax_rows, row_gather
 from the_algorithm_tpu_torch.ops.seg_scan import run_collapse_sorted
@@ -54,8 +60,9 @@ class ClusterTweetIndex(NamedTuple):
 
 def sort_by_id(ids: torch.Tensor, *values: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Stable sort of each [Q, W] row by id, carrying the value arrays along."""
-    ids, order = torch.sort(ids, dim=-1, stable=True)
-    return (ids,) + tuple(torch.take_along_dim(v, order, dim=-1) for v in values)
+    with span("retrieval.sort"):
+        ids, order = torch.sort(ids, dim=-1, stable=True)
+        return (ids,) + tuple(torch.take_along_dim(v, order, dim=-1) for v in values)
 
 
 # rows up to this wide sort in one in-place pass each on the card, which beats
@@ -119,7 +126,9 @@ def _dedup_sum(ids: torch.Tensor, *values: torch.Tensor) -> Tuple[torch.Tensor, 
     Returns (rep_ids, *summed): one slot per distinct id holds it, every
     other slot holds PAD_ID / 0. Callers must not depend on which slot.
     """
-    return run_collapse_sorted(*sort_by_id(ids, *values))
+    ordered = sort_by_id(ids, *values)
+    with span("retrieval.collapse"):
+        return run_collapse_sorted(*ordered)
 
 
 def _per_query(x: PerQuery, ndim: int) -> PerQuery:
@@ -141,18 +150,19 @@ def scan_entries(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The scan's entries before dedup, flat per query: (tweet ids, tweetScore ·
     srcScore, tweetScore²), each [Q, N·M]; filtered entries are PAD_ID / 0."""
-    valid = (rows_ids != PAD_ID) & source.valid_mask()[..., None]
-    if exclude_tweet_id is not None:
-        valid &= rows_ids != _per_query(exclude_tweet_id, 3)
-    if earliest_ts is not None:
-        valid &= rows_ts >= _per_query(earliest_ts, 3)
-    if latest_ts is not None:
-        valid &= rows_ts <= _per_query(latest_ts, 3)
-    contrib = torch.where(valid, rows_scores * source.scores[..., None], 0.0)
-    norm_part = torch.where(valid, rows_scores * rows_scores, 0.0)
-    flat_ids = torch.where(valid, rows_ids, PAD_ID)
-    Q = rows_ids.shape[0]
-    return flat_ids.reshape(Q, -1), contrib.reshape(Q, -1), norm_part.reshape(Q, -1)
+    with span("retrieval.scan"):
+        valid = (rows_ids != PAD_ID) & source.valid_mask()[..., None]
+        if exclude_tweet_id is not None:
+            valid &= rows_ids != _per_query(exclude_tweet_id, 3)
+        if earliest_ts is not None:
+            valid &= rows_ts >= _per_query(earliest_ts, 3)
+        if latest_ts is not None:
+            valid &= rows_ts <= _per_query(latest_ts, 3)
+        contrib = torch.where(valid, rows_scores * source.scores[..., None], 0.0)
+        norm_part = torch.where(valid, rows_scores * rows_scores, 0.0)
+        flat_ids = torch.where(valid, rows_ids, PAD_ID)
+        Q = rows_ids.shape[0]
+        return flat_ids.reshape(Q, -1), contrib.reshape(Q, -1), norm_part.reshape(Q, -1)
 
 
 def accumulate_from_rows(
@@ -185,12 +195,13 @@ def fetch_rows(
     JAX package's gather reads: a negative id counts from the end (+C), and
     the result is clamped to [0, C-1]; such a slot keeps its score.
     """
-    safe_cluster = jax_rows(torch.where(source.valid_mask(), source.ids, 0), index.num_clusters)
-    rows = row_gather(safe_cluster, index.tweet_ids, index.scores, index.timestamps)
-    M = index.tweets_per_cluster
-    if max_top_tweets_per_cluster is not None and max_top_tweets_per_cluster < M:
-        rows = tuple(r[..., :max_top_tweets_per_cluster] for r in rows)
-    return rows
+    with span("retrieval.multiget"):
+        safe_cluster = jax_rows(torch.where(source.valid_mask(), source.ids, 0), index.num_clusters)
+        rows = row_gather(safe_cluster, index.tweet_ids, index.scores, index.timestamps)
+        M = index.tweets_per_cluster
+        if max_top_tweets_per_cluster is not None and max_top_tweets_per_cluster < M:
+            rows = tuple(r[..., :max_top_tweets_per_cluster] for r in rows)
+        return rows
 
 
 def accumulate_candidates(
@@ -232,6 +243,37 @@ def normalize_scores(
     raise ValueError(f"unknown algorithm {algorithm}")
 
 
+def top_results(
+    uniq_ids: torch.Tensor,  # [Q, W] deduped tweet ids, PAD_ID empty
+    sum_contrib: torch.Tensor,  # [Q, W]
+    sum_norm: torch.Tensor,  # [Q, W]
+    source: SparseEmbedding,  # [Q, N]
+    *,
+    max_results: int,
+    algorithm: ScoringAlgorithm,
+    min_score: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalize, filter and take the top-X of accumulated candidates: ids
+    [Q, X] (PAD_ID where none) and scores [Q, X] (-inf where none), X wide
+    even when the scan has fewer slots."""
+    with span("retrieval.score"):
+        score = normalize_scores(
+            sum_contrib, sum_norm, sparse.l2_norm(source), sparse.log_norm(source), algorithm
+        )
+        score = torch.where((uniq_ids != PAD_ID) & (score >= min_score), score, -torch.inf)
+    with span("retrieval.top_k"):
+        k = min(max_results, score.shape[-1])
+        top_scores, top_idx = top_k(score, k)
+        top_ids = torch.where(
+            torch.isfinite(top_scores), torch.take_along_dim(uniq_ids, top_idx, dim=-1), PAD_ID
+        )
+        if k < max_results:  # keep the static output width the caller asked for
+            pad = (top_ids.shape[0], max_results - k)
+            top_ids = torch.cat([top_ids, top_ids.new_full(pad, PAD_ID)], dim=-1)
+            top_scores = torch.cat([top_scores, top_scores.new_full(pad, -torch.inf)], dim=-1)
+        return top_ids, top_scores
+
+
 def approximate_cosine_similarity(
     index: ClusterTweetIndex,
     source: SparseEmbedding,
@@ -251,25 +293,12 @@ def approximate_cosine_similarity(
     score -inf; the output keeps the requested width X even when the scan
     has fewer slots.
     """
-    uniq_ids, sum_contrib, sum_norm = accumulate_candidates(
+    accumulated = accumulate_candidates(
         index, source,
         max_top_tweets_per_cluster=max_top_tweets_per_cluster,
         exclude_tweet_id=exclude_tweet_id, earliest_ts=earliest_ts, latest_ts=latest_ts,
     )
-    score = normalize_scores(
-        sum_contrib, sum_norm, sparse.l2_norm(source), sparse.log_norm(source), algorithm
-    )
-    score = torch.where((uniq_ids != PAD_ID) & (score >= min_score), score, -torch.inf)
-    k = min(max_results, score.shape[-1])
-    top_scores, top_idx = top_k(score, k)
-    top_ids = torch.where(
-        torch.isfinite(top_scores), torch.take_along_dim(uniq_ids, top_idx, dim=-1), PAD_ID
-    )
-    if k < max_results:  # keep the static output width the caller asked for
-        pad = (top_ids.shape[0], max_results - k)
-        top_ids = torch.cat([top_ids, top_ids.new_full(pad, PAD_ID)], dim=-1)
-        top_scores = torch.cat([top_scores, top_scores.new_full(pad, -torch.inf)], dim=-1)
-    return top_ids, top_scores
+    return top_results(*accumulated, source, max_results=max_results, algorithm=algorithm, min_score=min_score)
 
 
 def approximate_cosine_similarity_batch(

@@ -42,6 +42,13 @@ class _Pending:
     enqueued_at: float
 
 
+def _record_waits(stats: StatsReceiver, batch: List[_Pending], start: float) -> None:
+    """Each item's wait from its enqueue to its batch's start, as the stat
+    ``queue_wait_ms``."""
+    for p in batch:
+        stats.stat("queue_wait_ms", (start - p.enqueued_at) * 1e3)
+
+
 class RequestBatcher:
     """Size + deadline coalescing of WHOLE requests (the navi front applied
     at the product edge, not just the model call).
@@ -131,6 +138,7 @@ class RequestBatcher:
                 continue
             self.stats.stat("request_batch_size", len(batch))
             t0 = time.perf_counter()
+            _record_waits(self.stats, batch, t0)
             try:
                 outs = self.serve_fn([p.inputs for p in batch])
             except Exception as e:
@@ -235,6 +243,7 @@ class DynamicBatcher:
                 inputs = np.concatenate([inputs, pad], axis=0)
             self.stats.stat("batch_size", n)
             t0 = time.perf_counter()
+            _record_waits(self.stats, batch, t0)
             try:
                 outputs = np.asarray(self.predict_fn(inputs))[:n]
             except Exception as e:

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from the_algorithm_tpu_torch.core.mesh import MODEL_AXIS, Mesh, shard_rows
+from the_algorithm_tpu_torch.core.metrics import span
 from the_algorithm_tpu_torch.ops import retrieval, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, PerQuery, ScoringAlgorithm, top_k
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
@@ -50,22 +51,21 @@ def _query(
     now: Optional[PerQuery],
     exclude_tweet_id: Optional[PerQuery],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    src = sparse.truncate(sources, config.max_scan_clusters)
-    earliest = latest = None
-    if now is not None:
-        earliest = now - config.max_tweet_candidate_age_hours * 3600
-        latest = now - config.min_tweet_candidate_age_hours * 3600
-    return retrieval.approximate_cosine_similarity(
-        index,
-        src,
-        max_results=config.max_num_results,
-        algorithm=config.scoring_algorithm,
-        min_score=config.min_score,
-        max_top_tweets_per_cluster=config.max_top_tweets_per_cluster,
-        exclude_tweet_id=exclude_tweet_id,
-        earliest_ts=earliest,
-        latest_ts=latest,
-    )
+    """One batch of the SANN tier, in a ``sann.query`` span."""
+    with span("sann.query"):
+        src = sparse.truncate(sources, config.max_scan_clusters)
+        earliest, latest = _window(config, now)
+        return retrieval.approximate_cosine_similarity(
+            index,
+            src,
+            max_results=config.max_num_results,
+            algorithm=config.scoring_algorithm,
+            min_score=config.min_score,
+            max_top_tweets_per_cluster=config.max_top_tweets_per_cluster,
+            exclude_tweet_id=exclude_tweet_id,
+            earliest_ts=earliest,
+            latest_ts=latest,
+        )
 
 
 def get_tweet_candidates(
@@ -124,27 +124,18 @@ def fetch_cluster_rows(mesh: Mesh, index: ClusterTweetIndex, cluster_ids: torch.
     return ClusterTweetIndex(out["tweet_ids"], out["scores"], out["timestamps"])
 
 
-def _window(config: SimClustersANNConfig, now: Optional[int]):
+def _window(config: SimClustersANNConfig, now: Optional[PerQuery]):
     if now is None:
         return None, None
     return (now - config.max_tweet_candidate_age_hours * 3600,
             now - config.min_tweet_candidate_age_hours * 3600)
 
 
-def _top_results(uniq, dot, norm, l2, log, config: SimClustersANNConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Normalize, filter and take the top-X of accumulated candidates: ids
-    [Q, X] (PAD_ID where none) and scores [Q, X] (-inf where none)."""
-    score = retrieval.normalize_scores(dot, norm, l2, log, config.scoring_algorithm)
-    score = torch.where((uniq != PAD_ID) & (score >= config.min_score), score, -torch.inf)
-    X = config.max_num_results
-    k = min(X, score.shape[-1])
-    top, idx = top_k(score, k)
-    ids = torch.where(torch.isfinite(top), torch.take_along_dim(uniq, idx, dim=-1), PAD_ID)
-    if k < X:  # keep the width the caller asked for
-        pad = (ids.shape[0], X - k)
-        ids = torch.cat([ids, ids.new_full(pad, PAD_ID)], dim=-1)
-        top = torch.cat([top, top.new_full(pad, -torch.inf)], dim=-1)
-    return ids, top
+def _top_results(uniq, dot, norm, src: SparseEmbedding,
+                 config: SimClustersANNConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``retrieval.top_results`` under the config's X, algorithm and minimum score."""
+    return retrieval.top_results(uniq, dot, norm, src, max_results=config.max_num_results,
+                                 algorithm=config.scoring_algorithm, min_score=config.min_score)
 
 
 def _owned_partials(mesh: Mesh, index: ClusterTweetIndex, src: SparseEmbedding, config: SimClustersANNConfig,
@@ -170,7 +161,7 @@ def _owned_partials(mesh: Mesh, index: ClusterTweetIndex, src: SparseEmbedding, 
 def _merge(uniq, dot, norm, src: SparseEmbedding, config: SimClustersANNConfig):
     """Re-accumulate the gathered partials by tweet id, then top-X."""
     uniq2, dot2, norm2 = retrieval._dedup_sum(uniq, dot, norm)
-    return _top_results(uniq2, dot2, norm2, sparse.l2_norm(src), sparse.log_norm(src), config)
+    return _top_results(uniq2, dot2, norm2, src, config)
 
 
 def get_tweet_candidates_sharded(
@@ -228,7 +219,7 @@ def get_tweet_candidates_query_sharded(
     earliest, latest = _window(config, now)
     uniq, dot, norm = retrieval.accumulate_from_rows(
         *(r.reshape(Ql, N, M) for r in rows), src, earliest_ts=earliest, latest_ts=latest)
-    return _top_results(uniq, dot, norm, sparse.l2_norm(src), sparse.log_norm(src), config)
+    return _top_results(uniq, dot, norm, src, config)
 
 
 def get_tweet_candidates_hybrid(
