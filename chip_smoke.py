@@ -389,7 +389,7 @@ from the_algorithm_tpu_torch.graph import realgraph
 from the_algorithm_tpu_torch.models import masknet, phoenix, push_rankers, twhin, two_tower, wals
 from the_algorithm_tpu_torch.models import trust_safety as ts
 from the_algorithm_tpu_torch.models import trust_safety_train as tst
-from the_algorithm_tpu_torch.ops import gather, retrieval, seg_scan, sparse
+from the_algorithm_tpu_torch.ops import gather, id_sort, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 from the_algorithm_tpu_torch.pipeline import urt
@@ -465,6 +465,7 @@ MIN_EVENTS = 500
 HBM_BYTES_PER_S = 3.35e12
 # the candidate sources as bench.py's For You phase runs them (bench.py:497-500)
 CAND_R = 32  # users in a batch (bench.py's largest)
+SORT_Q = 1024  # the benchmark cell's SANN batch (BENCHMARK.json: foryou.sann_q1024)
 EB_RESULTS, UTEG_RESULTS, UTG_RESULTS = 700, 400, 200
 UTG_CHECKED = 16  # UTG sources held against the numpy oracle
 # earlybird on the card against the port on the CPU: float32 scores whose sums
@@ -695,6 +696,62 @@ def time_collapse(entries, label, copy_yardstick=True):
                 bound_ms=bound, bound_by="bytes", library_ms=None, copy_ms=copy_ms)
 
 
+def time_sort(ids, values, label):
+    """sort_by_id's kernel against its plain version, torch.sort(stable=True)
+    and take_along_dim (the library call here too), on the card: one launch a
+    call, ids and every value word equal, both clocks, TB/s and the share of
+    the bytes bound (each slot's id and values read once and written once)."""
+    before = _build.launches(id_sort.sort_by_id)
+    got = id_sort.sort_by_id(ids, *values)
+    torch.cuda.synchronize()
+    require(_build.launches(id_sort.sort_by_id) == before + 1, f"sort_by_id: not one kernel launch at {label}")
+    want = id_sort.sort_by_id_plain(ids, *values)
+    require(torch.equal(got[0], want[0]) and all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                                                 for g, w in zip(got[1:], want[1:])),
+            f"sort_by_id differs from torch.sort(stable=True) + take_along_dim at {label}")
+    kernel = lambda: id_sort.sort_by_id(ids, *values)  # noqa: E731
+    plain = lambda: id_sort.sort_by_id_plain(ids, *values)  # noqa: E731
+    ms, plain_ms = timed_pair(kernel, plain)
+    dev_ms, plain_dev_ms = device_pair(kernel, plain, "id_sort")
+    moved = 2 * sum(t.numel() * t.element_size() for t in (ids, *values))
+    bound = bound_ms(moved)
+    (Q, W), k = ids.shape, len(values)
+    print(f"kernel sort_by_id: {label} [{Q}, {W}] k={k}, {moved / 1e6:.2f} MB moved, bit-equal to the stable sort; "
+          f"device {dev_ms:.4f} ms ({moved / dev_ms / 1e9:.2f} TB/s, {100 * bound / dev_ms:.1f}% of its {bound:.4f} ms "
+          f"bound) vs torch.sort + take_along_dim {plain_dev_ms:.4f} ms; events {ms:.4f} ms vs {plain_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=plain_dev_ms)
+
+
+def phase_sort_kernel(shape, index, sources, cand):
+    """The dedup's sort at each caller's shape whose rows the kernel takes:
+    SANN's entries at the benchmark cell's Q = 1,024 (the batch's rows four
+    times) and at Q = 256 (as the sharded merge's at world 1), one row (a
+    Home or wrapper-source query), UTEG's and UTG's batches, and single rows
+    of the Home UTEG and UTG widths. Returns the Q = 1,024 timing."""
+    src = sparse.truncate(sources, shape.N)
+    safe = torch.where(src.valid_mask(), src.ids, 0).reshape(-1).contiguous()
+    rows = tuple(r.reshape(shape.Q, shape.N, shape.M)
+                 for r in gather.row_gather(safe, index.tweet_ids, index.scores, index.timestamps))
+    entries = retrieval.scan_entries(*rows, src)  # [Q, N·M] each, unsorted
+    wide = tuple(torch.cat([e] * (SORT_Q // shape.Q)).contiguous() for e in entries)
+    timed = time_sort(wide[0], wide[1:], f"SANN entries x{SORT_Q // shape.Q}")
+    time_sort(entries[0], entries[1:], "SANN batch's entries")
+    time_sort(entries[0][:1].contiguous(), tuple(e[:1].contiguous() for e in entries[1:]), "one SANN query's entries")
+    world, _, graph, right = cand
+    s = world.shape
+    seeds = torch.from_numpy(world.seeds[np.arange(CAND_R) % s.num_users]).to(index.scores.device)
+    uteg_entries = uteg.engagement_entries(graph, seeds, torch.ones(seeds.shape, device=seeds.device))
+    time_sort(uteg_entries[0], uteg_entries[1:], "UTEG batch's entries")
+    flat, ones, _ = graphjet.cooccurrence_entries(graph, right, torch.from_numpy(world.utg_sources).to(seeds.device))
+    time_sort(flat, (ones,), "UTG batch's entries")
+    for W, k in ((512, 2), (1536, 2), (2048, 2), (4096, 1)):  # Home's UTEG family and UTG at R = 1
+        row = flat[:1, :W].contiguous()
+        time_sort(row, (ones[:1, :W].contiguous(),) * k, "one UTG row's first entries")
+    torch.cuda.empty_cache()
+    return timed
+
+
 def phase_kernels(shape, index, sources):
     """Each kernel against its plain version on the inputs the SANN batch gives it."""
     src = sparse.truncate(sources, shape.N)
@@ -913,13 +970,15 @@ def phase_retrieval(shape, tweet_ids, tweet_scores, index_np, q_ids, q_scores, i
         max_scan_clusters=shape.N, max_top_tweets_per_cluster=shape.M,
         max_num_results=shape.X, scoring_algorithm=ScoringAlgorithm.COSINE,
     )
-    # the main path, counted: one batch through both kernels
+    # the main path, counted: one batch through the three kernels
     seg_scan.run_collapse_sorted.launches = 0
     gather.row_gather.launches = 0
+    id_sort.sort_by_id.launches = 0
     out_ids, out_scores = ann.get_tweet_candidates_batch(index, sources, cfg)
     torch.cuda.synchronize()
     launches = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
-                "row_gather": _build.launches(gather.row_gather)}
+                "row_gather": _build.launches(gather.row_gather),
+                "sort_by_id": _build.launches(id_sort.sort_by_id)}
     require(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
     require(out_ids.shape == (shape.Q, shape.X) and out_scores.shape == (shape.Q, shape.X),
             f"result shape {tuple(out_ids.shape)}")
@@ -1094,13 +1153,21 @@ def phase_candidates(dev):
     for name, fn in batches.items():
         seg_scan.run_collapse_sorted.launches = 0
         gather.row_gather.launches = 0
+        id_sort.sort_by_id.launches = 0
         outs[name] = fn()
         torch.cuda.synchronize()
         launches[name] = {"run_collapse": _build.launches(seg_scan.run_collapse_sorted),
-                          "row_gather": _build.launches(gather.row_gather)}
+                          "row_gather": _build.launches(gather.row_gather),
+                          "sort_by_id": _build.launches(id_sort.sort_by_id)}
     print(f"candidates: launches per batch {launches}")
-    require(launches["uteg"] == {"run_collapse": 1, "row_gather": 1}, f"UTEG launches {launches['uteg']}")
-    require(launches["utg"] == {"run_collapse": 1, "row_gather": 2}, f"UTG launches {launches['utg']}")
+    # the dedup's sort is the kernel wherever its rule takes the batch's shape
+    sorts = {name: int(id_sort.engages(dev.type, q, w, k))
+             for name, q, w, k in (("uteg", CAND_R, s.seeds * s.uteg_width, 2),
+                                   ("utg", s.utg_sources, s.utg_width * s.uteg_width, 1))}
+    require(launches["uteg"] == {"run_collapse": 1, "row_gather": 1, "sort_by_id": sorts["uteg"]},
+            f"UTEG launches {launches['uteg']}")
+    require(launches["utg"] == {"run_collapse": 1, "row_gather": 2, "sort_by_id": sorts["utg"]},
+            f"UTG launches {launches['utg']}")
 
     # the graphs built on the card equal the per-event loop
     t0 = time.perf_counter()
@@ -7477,6 +7544,7 @@ def main() -> int:
     by_path["foryou"], fy = phase_foryou(dev, (sann_ids, sann_scores), cand_world)
     phase_candidate_kernels(dev, cand_world)
     kernels = phase_kernels(world[0], world[6], world[7])
+    kernels["sort_by_id"] = phase_sort_kernel(world[0], world[6], world[7], cand_world)
     phase_gather_sweep(dev)
     phase_collapse_sweep(dev)
     phase_ranking(dev)
@@ -7511,16 +7579,20 @@ def main() -> int:
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
         "run_collapse_rows": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:134"),
+        "sort_by_id": ("the_algorithm_tpu_torch/csrc/id_sort.cu",
+                       "none: the JAX package's lax.sort, the_algorithm_tpu/ops/retrieval.py:89, left to XLA"),
     }
     print(f"profiler: {PROFILER['sessions']} device-time sessions, {PROFILER['again']} of them opened again after "
           f"one that saw too little; {PROFILER['short']} times taken over kernel events the profiler left out, most "
           f"often of {PROFILER['left_out'].most_common(3)}")
     print(f"chip_smoke: {card_line()}; the whole script took {time.perf_counter() - t_start:.1f} s")
-    # launches: the counted batches of every path together; the times are at the SANN shapes
+    # launches: the counted batches of every path together (sort_by_id's on the paths that count it); the
+    # times are at the SANN shapes
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(n.get(name, 0) for n in by_path.values()),
-         "launches_by_path": {path: n.get(name, 0) for path, n in by_path.items()}, **kernels[name]}
+         "launches_by_path": {path: n.get(name, 0) for path, n in by_path.items()
+                              if name != "sort_by_id" or name in n}, **kernels[name]}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ from the_algorithm_tpu_torch.graph import graphjet, uteg
 from the_algorithm_tpu_torch.mixers import device_hydration as dh
 from the_algorithm_tpu_torch.mixers import wide_hydrators as wh
 from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
-from the_algorithm_tpu_torch.ops import gather, seg_scan
+from the_algorithm_tpu_torch.ops import gather, id_sort, retrieval, seg_scan
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 from the_algorithm_tpu_torch.search import earlybird
@@ -119,6 +119,138 @@ def test_row_gather_kernel_matches_plain_on_both_access_widths(cuda_device):
         assert gather.row_gather.launches == before + 1
         for g, w in zip(got, gather.row_gather_plain(ids, *group)):
             assert g.shape == w.shape and torch.equal(g, w)
+
+
+INT_MIN = -(2**31)
+SORT_KINDS = 8  # row kinds of _sort_rows, by q % 8
+
+
+def _sort_rows(rng, Q, W):
+    """[Q, W] int32 ids, by q % 8: SANN-like ids below 2M with repeats and a
+    PAD_ID tail, one id repeated, only PAD_ID, negative ids with INT_MIN
+    among them, descending ids, any int32 with repeats, ids that differ in
+    their top byte only, and few distinct ids (long runs)."""
+    ids = np.empty((Q, W), np.int32)
+    for q in range(Q):
+        kind = q % SORT_KINDS
+        if kind == 0:
+            row = rng.integers(0, 2_000_000, size=W)
+            row[rng.random(W) < 0.1] = PAD_ID
+        elif kind == 1:
+            row = np.full(W, rng.integers(INT_MIN, 2**31))
+        elif kind == 2:
+            row = np.full(W, PAD_ID)
+        elif kind == 3:
+            row = rng.integers(INT_MIN, 0, size=W)
+            row[rng.random(W) < 0.05] = INT_MIN
+            row[rng.random(W) < 0.05] = -1
+        elif kind == 4:
+            row = np.sort(rng.integers(INT_MIN, 2**31, size=W))[::-1]
+        elif kind == 5:
+            row = rng.integers(INT_MIN, 2**31, size=W)
+            row[rng.random(W) < 0.3] = row[0]
+        elif kind == 6:
+            row = rng.integers(-128, 128, size=W) << 24
+        else:
+            row = rng.integers(0, 7, size=W) * 1000 - 3000
+        ids[q] = row.astype(np.int64).astype(np.int32)
+    return ids
+
+
+def _bits(rng, Q, W):
+    """float32 [Q, W] of any 32-bit pattern: -0.0, NaNs with payloads,
+    infinities and denormals among them."""
+    words = rng.integers(INT_MIN, 2**31, size=(Q, W)).astype(np.int32)
+    words[:, ::7] = np.int32(INT_MIN)  # -0.0
+    words[:, 3::11] = np.int32(0x7FC01234)  # a quiet NaN with a payload
+    words[:, 5::13] = np.int32(-0x3FFFFF)  # 0xffc00001: a negative NaN with a payload
+    return words.view(np.float32)
+
+
+# (Q, W, k): the callers' shapes (SANN single-device and merge, UTEG, UTG,
+# Home's single SANN query and UTEG families), every k, each thread tile,
+# W = W_MAX, W that fill no warp evenly, one and three slots
+SORT_CASES = [(1024, 20_000, 2), (256, 20_000, 2), (32, 256, 2), (256, 4096, 1), (1, 20_000, 2), (1, 512, 2),
+              (1, 1536, 2), (1, 2048, 2), (1, 4096, 1), (16, 4096, 3), (16, 4096, 4), (16, 20_000, 4),
+              (8, id_sort.W_MAX, 2), (8, id_sort.W_MAX - 1, 1), (16, 12_345, 3), (16, 8_193, 2), (16, 4_097, 1),
+              (16, 1_000, 2), (16, 33, 4), (16, 3, 1), (16, 1, 2)]
+
+
+@pytest.mark.parametrize("Q,W,k", SORT_CASES)
+def test_sort_kernel_equals_the_stable_sort_bit_for_bit(cuda_device, Q, W, k):
+    rng = np.random.default_rng(Q * 7 + W + k)
+    ids = torch.from_numpy(_sort_rows(rng, Q, W)).to(cuda_device)
+    vals = [torch.from_numpy(_bits(rng, Q, W)).to(cuda_device) for _ in range(k)]
+    before = id_sort.sort_by_id.launches
+    got = id_sort.sort_by_id(ids, *vals)
+    torch.cuda.synchronize()
+    assert id_sort.sort_by_id.launches == before + 1
+    want = id_sort.sort_by_id_plain(ids, *vals)  # torch.sort(stable=True) + take_along_dim, on the card
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32 and torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("W", [20_000, 4096])
+def test_sort_kernel_on_rows_not_16_byte_aligned(cuda_device, W):
+    """Contiguous rows one word off 16-byte alignment take the kernel's
+    4-byte copies; bit-equal all the same."""
+    rng = np.random.default_rng(W)
+    Q = 8
+    ids = torch.from_numpy(_sort_rows(rng, Q, W)).to(cuda_device)
+    vals = [torch.empty(Q * W + 1, device=cuda_device)[1:].view(Q, W).copy_(torch.from_numpy(_bits(rng, Q, W)))
+            for _ in range(2)]
+    before = id_sort.sort_by_id.launches
+    got = id_sort.sort_by_id(ids, *vals)
+    torch.cuda.synchronize()
+    assert id_sort.sort_by_id.launches == before + 1
+    want = id_sort.sort_by_id_plain(ids, *vals)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_sort_rows_past_w_max_take_the_stable_sort(cuda_device):
+    rng = np.random.default_rng(5)
+    W = id_sort.W_MAX + 1
+    ids = torch.from_numpy(_sort_rows(rng, 8, W)).to(cuda_device)
+    vals = torch.from_numpy(_bits(rng, 8, W)).to(cuda_device)
+    before = id_sort.sort_by_id.launches
+    got = retrieval.sort_by_id(ids, vals)
+    torch.cuda.synchronize()
+    assert id_sort.sort_by_id.launches == before
+    want = id_sort.sort_by_id_plain(ids, vals)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+def test_sort_kernel_raises_on_what_it_does_not_take(cuda_device):
+    ids = torch.zeros((4, 64), dtype=torch.int32, device=cuda_device)
+    v = torch.zeros((4, 64), device=cuda_device)
+    for bad in ((ids, v.double()), (ids, v[:, :32]), (ids.t().contiguous().t(), v), (ids, v.t().contiguous().t()),
+                (ids.long(), v)):
+        with pytest.raises(ValueError):
+            id_sort.sort_by_id(*bad)
+
+
+def test_served_sann_lists_equal_the_stable_sort_path(cuda_device, monkeypatch):
+    """One SANN batch through the kernel and through torch.sort +
+    take_along_dim: equal ids reach the collapse in one order, so the
+    served ids and scores are the same bits."""
+    shape = sann_world.WorldShape(n_comm=16, cpc=60, M=40, N=10, X=30, T=20_000, KT=8, Q=64)
+    tweet_ids, tweet_scores, _, comm = sann_world.build_corpus(shape)
+    index_np = sann_world.build_index(shape, tweet_ids, tweet_scores)
+    q_ids, q_scores = sann_world.draw_queries(shape, comm)
+    cfg = ann.SimClustersANNConfig(max_scan_clusters=shape.N, max_top_tweets_per_cluster=shape.M,
+                                   max_num_results=shape.X)
+    index = ClusterTweetIndex(*(torch.from_numpy(a).to(cuda_device) for a in index_np))
+    src = SparseEmbedding(torch.from_numpy(q_ids).to(cuda_device), torch.from_numpy(q_scores).to(cuda_device))
+    before = id_sort.sort_by_id.launches
+    got = ann.get_tweet_candidates_batch(index, src, cfg)
+    torch.cuda.synchronize()
+    assert id_sort.sort_by_id.launches == before + 1
+    monkeypatch.setattr(id_sort, "engages", lambda *a: False)
+    want = ann.get_tweet_candidates_batch(index, src, cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
 
 
 def _table(rng, R, cols, dtype):

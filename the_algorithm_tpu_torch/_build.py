@@ -49,6 +49,8 @@ _SIGNATURES = {
     "row_gather_ring": [_P, _I, _I, _I] + [_P] * 6 + [_L] * 3 + [_I, _L] + [_I] * 3 + [_P],
     # ids, B, R, k, t0, t1, t2, o0, o1, o2, rb0, rb1, rb2, num_sms, stream
     "row_gather_words": [_P, _I, _I, _I] + [_P] * 6 + [_L] * 3 + [_I, _P],
+    # ids, v0..v3, out_ids, o0..o3, Q, W, k, ipt, threads, smem, stream
+    "sort_by_id": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 

@@ -5,7 +5,8 @@ function takes Q queries at once (``[Q, N]`` source embeddings, ``[Q, ...]``
 results), so one call is what ``jax.vmap`` of the JAX single-query function
 computes. The scan per query: fetch its N cluster rows (one
 :func:`~the_algorithm_tpu_torch.ops.gather.row_gather` launch for the three
-index tables) → multiply → dedup by tweet id (stable sort, then
+index tables) → multiply → dedup by tweet id (stable sort, one
+:func:`~the_algorithm_tpu_torch.ops.id_sort.sort_by_id` launch, then
 :func:`~the_algorithm_tpu_torch.ops.seg_scan.run_collapse_sorted`) →
 normalize → mask → top-X.
 
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from the_algorithm_tpu_torch.core.metrics import span
-from the_algorithm_tpu_torch.ops import sparse
+from the_algorithm_tpu_torch.ops import id_sort, sparse
 from the_algorithm_tpu_torch.ops.gather import jax_rows, row_gather
 from the_algorithm_tpu_torch.ops.seg_scan import run_collapse_sorted
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
@@ -59,10 +60,11 @@ class ClusterTweetIndex(NamedTuple):
 
 
 def sort_by_id(ids: torch.Tensor, *values: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Stable sort of each [Q, W] row by id, carrying the value arrays along."""
+    """Stable sort of each [Q, W] row by id, carrying the value arrays along:
+    one kernel launch on the card where the row fits one CTA
+    (:func:`~the_algorithm_tpu_torch.ops.id_sort.sort_by_id`)."""
     with span("retrieval.sort"):
-        ids, order = torch.sort(ids, dim=-1, stable=True)
-        return (ids,) + tuple(torch.take_along_dim(v, order, dim=-1) for v in values)
+        return id_sort.sort_by_id(ids, *values)
 
 
 # rows up to this wide sort in one in-place pass each on the card, which beats

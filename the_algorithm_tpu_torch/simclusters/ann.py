@@ -241,5 +241,5 @@ def get_tweet_candidates_hybrid(
     uniq, dot, norm = _owned_partials(mesh, index, src, config, now, partials_per_shard)  # [Ql, R]
     packed = torch.stack([uniq, dot.view(torch.int32), norm.view(torch.int32)], dim=-1)
     g = mesh.all_gather(packed, MODEL_AXIS, dim=1)  # [Ql, E·R, 3]
-    return _merge(g[..., 0], g[..., 1].contiguous().view(torch.float32), g[..., 2].contiguous().view(torch.float32),
-                  src, config)
+    return _merge(g[..., 0].contiguous(), g[..., 1].contiguous().view(torch.float32),
+                  g[..., 2].contiguous().view(torch.float32), src, config)
