@@ -323,7 +323,18 @@ Phases, each printing its result on its own line:
     (printed), a save restored into a fresh Trainer (the saved bits; two
     equal steps from it bit-equal), a step on CUDA events and by part, both
     kernels at the step's shapes; then the JAX package's AUC recipe at its
-    own shape (AUC > 0.75).
+    own shape (AUC > 0.75);
+20. phoenix_moonlight, in a child process after that one (``chip_smoke.py
+    --phoenix-moonlight`` runs it alone): Moonlight-16B-A3B's routed layer
+    at the Phoenix cell's batch (16,384 tokens, top-6 of 64 experts, D
+    2,048, I 1,408, bf16): the grouped GEMM's two kernels and the combine
+    against their plain versions (within a bf16 step of the result's
+    scale), each kernel's device time against its bound, its plain
+    version's and, for the pair, a loop of per-expert library products;
+    then a small decoder-kind Phoenix (3 routed layers) forward, counted
+    (one launch of each kernel a routed layer and one row_gather, required
+    exactly), every routed layer's kernels held against the plain versions
+    on that layer's own inputs.
 
 Then one JSON line with each kernel's launches (in all, and by path: SANN,
 UTEG, UTG, tweet-mixer's Home, For You, training, the exact tier, live
@@ -331,7 +342,8 @@ updates, the per-request For You product, the serving edge, the products
 phase's FRS, push, trust & safety, timeline ranker and actions, the write
 path, the offline jobs, the index job, RMS and the wrapper source, the
 score facade, evaluation, entity embeddings, ann_lib, embedding training,
-the mesh layer's serving and training halves, Phoenix training),
+the mesh layer's serving and training halves, Phoenix training, Phoenix
+on Moonlight's layers),
 error and times, and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; it needs no network.
@@ -387,9 +399,10 @@ from the_algorithm_tpu_torch.mixers.home_mixer import ForYouQuery
 from the_algorithm_tpu_torch.mixers.home_products import EXACT_RETRIEVAL_TIER
 from the_algorithm_tpu_torch.graph import realgraph
 from the_algorithm_tpu_torch.models import masknet, phoenix, push_rankers, twhin, two_tower, wals
+from the_algorithm_tpu_torch.models import moe_transformer
 from the_algorithm_tpu_torch.models import trust_safety as ts
 from the_algorithm_tpu_torch.models import trust_safety_train as tst
-from the_algorithm_tpu_torch.ops import gather, id_sort, retrieval, seg_scan, sparse
+from the_algorithm_tpu_torch.ops import expert_gemm, gather, id_sort, retrieval, seg_scan, sparse
 from the_algorithm_tpu_torch.ops.retrieval import ClusterTweetIndex, ScoringAlgorithm
 from the_algorithm_tpu_torch.ops.sparse import PAD_ID, SparseEmbedding
 from the_algorithm_tpu_torch.pipeline import urt
@@ -7531,6 +7544,167 @@ def phase_phoenix_training(dev):
           f"users (bar > {PT_RECIPE_AUC}) in {recipe_s:.1f} s; the phase {time.perf_counter() - t_start:.1f} s")
     return {"launches": launches, "row_gather": gather_t, "run_collapse_rows": rows_t}
 
+# Moonlight-16B-A3B's routed layer at the Phoenix cell's batch (BENCHMARK.json:
+# foryou.phoenix_moonlight_b16, 16 requests x 1,024 history slots)
+PM_T, PM_E, PM_K, PM_D, PM_I = 16384, 64, 6, 2048, 1408
+PM_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA's data sheet)
+PM_WRAPPERS = {"expert_swiglu": expert_gemm.expert_swiglu, "expert_down": expert_gemm.expert_down,
+               "moe_combine": expert_gemm.moe_combine}
+
+
+def pm_close(got, want, what):
+    """Kernel and plain version both sum in f32 and round once to bf16, in
+    other orders: within a bf16 step (2^-7) of the result's largest entry."""
+    err, scale = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    require(err <= 2.0 ** -7 * scale, f"phoenix_moonlight: {what} {err:.4g} from its plain version "
+                                      f"(limit {2.0 ** -7 * scale:.4g})")
+    return err / scale
+
+
+def pm_layer(dev, T, E, k, D, I, seed):
+    """A routed layer's inputs: bf16 tokens and expert weights of the
+    layer's scale, top-k of uniform scores (the cell's routing is near
+    uniform), f32 weights, the shared expert's output and the residual."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(T, D, generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.topk(torch.rand(T, E, generator=g, device=dev), k, dim=-1).indices
+    wg, wu = ((torch.randn(E, I, D, generator=g, device=dev) / D ** 0.5).to(torch.bfloat16) for _ in range(2))
+    wd = (torch.randn(E, D, I, generator=g, device=dev) / I ** 0.5).to(torch.bfloat16)
+    w = torch.rand(T, k, generator=g, device=dev)
+    shared, res = (torch.randn(T, D, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    return x, idx, wg, wu, wd, w, shared, res
+
+
+def pm_bound_ms(flops: float, nbytes: float) -> float:
+    return max(flops / PM_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def pm_routed_layer(dev):
+    """The three kernels at the cell's shape against their plain versions,
+    with device times, bounds and the library loop."""
+    T, E, k, D, I = PM_T, PM_E, PM_K, PM_D, PM_I
+    x, idx, wg, wu, wd, w, shared, res = pm_layer(dev, T, E, k, D, I, seed=24)
+    S = T * k
+    with torch.inference_mode():
+        d = expert_gemm.dispatch(idx, E)
+        h = expert_gemm.expert_swiglu(x, wg, wu, d)
+        y = expert_gemm.expert_down(h, wd, d)
+        out = expert_gemm.moe_combine(y, w, shared, res)
+        torch.cuda.synchronize()
+        errs = {"expert_swiglu": pm_close(h, expert_gemm.expert_swiglu_plain(x, wg, wu, d), "expert_swiglu"),
+                "expert_down": pm_close(y, expert_gemm.expert_down_plain(h, wd, d), "expert_down"),
+                "moe_combine": pm_close(out, expert_gemm.moe_combine_plain(y, w, shared, res), "moe_combine")}
+        offs = d.offsets.tolist()
+        rows = [x[d.src[offs[e]:offs[e + 1]].long()] for e in range(E)]  # the library loop's gathered rows
+
+        def library():
+            for e in range(E):
+                he = torch.nn.functional.silu(rows[e] @ wg[e].T) * (rows[e] @ wu[e].T)
+                he @ wd[e].T
+
+        calls = {"expert_swiglu": (lambda: expert_gemm.expert_swiglu(x, wg, wu, d),
+                                   lambda: expert_gemm.expert_swiglu_plain(x, wg, wu, d)),
+                 "expert_down": (lambda: expert_gemm.expert_down(h, wd, d),
+                                 lambda: expert_gemm.expert_down_plain(h, wd, d)),
+                 "moe_combine": (lambda: expert_gemm.moe_combine(y, w, shared, res),
+                                 lambda: expert_gemm.moe_combine_plain(y, w, shared, res))}
+        work = {"expert_swiglu": (2.0 * S * D * 2 * I, 2 * (T * D + 2 * E * I * D + S * I)),
+                "expert_down": (2.0 * S * I * D, 2 * (S * I + E * D * I + S * D)),
+                "moe_combine": (3.0 * S * D, 2 * (S * D + 3 * T * D) + 4 * S)}
+        times = {}
+        for name, (kernel, plain) in calls.items():
+            ms, ev_ms = device_ms(kernel, 20, kernels_only=True), cuda_ms(kernel, 20)
+            plain_ms = cuda_ms(plain, 3)
+            times[name] = {"shape": f"{S} slots of {T} tokens over {E} experts, D {D}, I {I}", "device_ms": ms,
+                           "cuda_events_ms": ev_ms, "bound_ms": pm_bound_ms(*work[name]),
+                           "plain_ms": plain_ms, "max_rel_err": errs[name]}
+        pair = times["expert_swiglu"]["device_ms"] + times["expert_down"]["device_ms"]
+        lib_ms = cuda_ms(library, 10)
+        times["expert_swiglu"]["library_ms"] = lib_ms  # the pair's yardstick: 64 x 3 library products
+    for name, t in times.items():
+        print(f"phoenix_moonlight: {name} at {t['shape']}: {t['device_ms']:.4f} ms device time "
+              f"({t['cuda_events_ms']:.4f} ms on CUDA events), bound {t['bound_ms']:.4f} ms "
+              f"({100 * t['bound_ms'] / t['device_ms']:.1f}%), plain version {t['plain_ms']:.3f} ms; within "
+              f"{t['max_rel_err']:.3g} of the plain version's largest entry")
+    print(f"phoenix_moonlight: the grouped GEMM pair {pair:.4f} ms against {lib_ms:.3f} ms for a loop of "
+          f"{E} x 3 library products over pre-gathered rows (CUDA events)")
+    return times
+
+
+def pm_checked_layers(forward, gaps):
+    """A ``MoE.forward`` that runs the layer as ``forward`` does, then holds
+    the kernels to the plain versions on the layer's own inputs and
+    dispatch, appending the gaps (a routed layer's inputs would differ
+    between two whole forwards after the first, so each layer is held on its
+    own)."""
+
+    def checked(self, x, residual):
+        out = forward(self, x, residual)
+        idx, w = self.route(x)
+        d = expert_gemm.dispatch(idx, self.c.n_routed_experts)
+        e = self.experts
+        h = expert_gemm.expert_swiglu(x, e.gate_proj, e.up_proj, d)
+        y = expert_gemm.expert_down(h, e.down_proj, d)
+        gaps.append(max(pm_close(h, expert_gemm.expert_swiglu_plain(x, e.gate_proj, e.up_proj, d), "expert_swiglu"),
+                        pm_close(y, expert_gemm.expert_down_plain(h, e.down_proj, d), "expert_down")))
+        want = expert_gemm.moe_combine_plain(y, w, self.shared_experts(x), residual)
+        gaps.append(pm_close(expert_gemm.moe_combine(y, w, self.shared_experts(x), residual), want, "moe_combine"))
+        return out
+
+    return checked
+
+
+def pm_small_forward(dev):
+    """A small decoder-kind Phoenix: one counted forward, then one whose
+    routed layers are each held against the plain versions."""
+    cfg = phoenix.PhoenixConfig(d_model=256, n_layers=4, n_heads=4, max_history=64, author_buckets=1024,
+                                decoder=dataclasses.replace(moe_transformer.MoEDecoderConfig(), n_routed_experts=16,
+                                                            moe_intermediate_size=128, intermediate_size=512))
+    model = phoenix.PhoenixModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    B, L, C = 2, 64, 40
+    g = torch.Generator(device=dev).manual_seed(1)
+    valid = torch.arange(L, device=dev)[None, :] >= torch.tensor([[0], [24]], device=dev)  # one left-padded
+    seq = phoenix.UserActionSequence(torch.randint(0, phoenix.NUM_ACTIONS, (B, L), generator=g, device=dev,
+                                                   dtype=torch.int32),
+                                     torch.randint(0, 1 << 20, (B, L), generator=g, device=dev, dtype=torch.int32),
+                                     torch.randint(0, 10 ** 6, (B, L), generator=g, device=dev, dtype=torch.int32),
+                                     valid)
+    cands = phoenix.CandidateFeatures(torch.randint(0, 1 << 20, (B, C), generator=g, device=dev, dtype=torch.int32),
+                                      torch.rand((B, C, phoenix.NUM_BOOL_FEATURES), generator=g, device=dev),
+                                      torch.ones((B, C), dtype=torch.bool, device=dev))
+    routed = len(model.moe_layers())
+    with torch.inference_mode():
+        phoenix.predict_next_actions(model, seq, cands)  # warm
+        for f in PM_WRAPPERS.values():
+            f.launches = 0
+        probs, launches = counted(lambda: phoenix.predict_next_actions(model, seq, cands))
+        launches.update({name: _build.launches(f) for name, f in PM_WRAPPERS.items()})
+        want = {"row_gather": 1, "run_collapse": 0, "run_collapse_rows": 0,
+                **{name: routed for name in PM_WRAPPERS}}
+        require(launches == want, f"phoenix_moonlight: a decoder forward launched {launches}, want {want}")
+        require(bool(torch.isfinite(probs).all()), "phoenix_moonlight: a decoder forward's probabilities not finite")
+        forward, gaps = moe_transformer.MoE.forward, []
+        moe_transformer.MoE.forward = pm_checked_layers(forward, gaps)
+        try:
+            phoenix.predict_next_actions(model, seq, cands)
+        finally:
+            moe_transformer.MoE.forward = forward
+    require(len(gaps) == 2 * routed, f"phoenix_moonlight: {len(gaps) // 2} of {routed} routed layers held")
+    return launches, routed, max(gaps)
+
+
+def phase_phoenix_moonlight(dev):
+    """The grouped expert GEMM and the combine at the Phoenix cell's shape;
+    a small decoder-kind forward's launches and layers."""
+    t0 = time.perf_counter()
+    times = pm_routed_layer(dev)
+    launches, routed, gap = pm_small_forward(dev)
+    print(f"phoenix_moonlight: a decoder-kind Phoenix (d 256, 4 layers of which {routed} routed over 16 experts, "
+          f"L 64, 2 requests of 40 candidates, bf16): one counted forward {launches}; every routed layer's kernels "
+          f"within {gap:.3g} of the plain versions' largest entry on its own inputs; the phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "kernels": times}
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -7575,24 +7749,33 @@ def main() -> int:
         by_path["mesh"] = phase_apart("--mesh", "mesh", root, timeout=MESH_TIMEOUT)["launches"]
     by_path["mesh_training"] = phase_apart("--mesh-training", "mesh_training", timeout=MT_TIMEOUT)["launches"]
     by_path["phoenix_training"] = phase_apart("--phoenix-training", "phoenix_training", timeout=PT_TIMEOUT)["launches"]
+    pm = phase_apart("--phoenix-moonlight", "phoenix_moonlight")
+    by_path["phoenix_moonlight"] = pm["launches"]
+    kernels.update(pm["kernels"])
     sources = {
         "run_collapse": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:101"),
         "row_gather": ("the_algorithm_tpu_torch/csrc/gather.cu", "the_algorithm_tpu/ops/gather.py:55"),
         "run_collapse_rows": ("the_algorithm_tpu_torch/csrc/seg_scan.cu", "the_algorithm_tpu/ops/seg_scan.py:134"),
         "sort_by_id": ("the_algorithm_tpu_torch/csrc/id_sort.cu",
                        "none: the JAX package's lax.sort, the_algorithm_tpu/ops/retrieval.py:89, left to XLA"),
+        "expert_swiglu": ("the_algorithm_tpu_torch/csrc/experts/expert_gemm.cu",
+                          "none: the JAX package has no mixture of experts"),
+        "expert_down": ("the_algorithm_tpu_torch/csrc/experts/expert_gemm.cu",
+                        "none: the JAX package has no mixture of experts"),
+        "moe_combine": ("the_algorithm_tpu_torch/tsrc/expert_gemm.py", "none: the JAX package has no mixture of experts"),
     }
+    counted_everywhere = ("run_collapse", "row_gather", "run_collapse_rows")  # the rest on the paths that count them
     print(f"profiler: {PROFILER['sessions']} device-time sessions, {PROFILER['again']} of them opened again after "
           f"one that saw too little; {PROFILER['short']} times taken over kernel events the profiler left out, most "
           f"often of {PROFILER['left_out'].most_common(3)}")
     print(f"chip_smoke: {card_line()}; the whole script took {time.perf_counter() - t_start:.1f} s")
-    # launches: the counted batches of every path together (sort_by_id's on the paths that count it); the
-    # times are at the SANN shapes
+    # launches: the counted batches of every path together (sort_by_id's and the experts' on the paths that
+    # count them); the times are at the SANN shapes and, for the experts' kernels, at the Phoenix cell's
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+        {"name": name, "route": "triton" if src.endswith(".py") else "cuda", "source": src, "replaces": rep,
          "launches": sum(n.get(name, 0) for n in by_path.values()),
          "launches_by_path": {path: n.get(name, 0) for path, n in by_path.items()
-                              if name != "sort_by_id" or name in n}, **kernels[name]}
+                              if name in counted_everywhere or name in n}, **kernels[name]}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
@@ -7609,7 +7792,8 @@ if __name__ == "__main__":
                     "--mesh-training": phase_mesh_training,
                     "--offline-simclusters": phase_offline_simclusters_alone,
                     "--offline-simclusters-2": phase_offline_part_two,
-                    "--phoenix-training": phase_phoenix_training}
+                    "--phoenix-training": phase_phoenix_training,
+                    "--phoenix-moonlight": phase_phoenix_moonlight}
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-training-rank"]:

@@ -2,10 +2,13 @@
 
 Every ``csrc/*.cu`` source compiles with ``nvcc`` into ONE shared library with
 a plain C interface (no PyTorch headers, so the build takes seconds, not
-minutes). The library lands in ``build/kernels/`` under the repository root,
-named by a hash of the sources and flags, so an edited kernel rebuilds and an
-unchanged one loads from disk. Nothing here runs at import time: the CPU tests
-import every module of the package on a machine with no ``nvcc``.
+minutes). The mixture-of-experts kernels (``csrc/experts/*.cu``) build into a
+library of their own, at their first launch, so a process that runs no expert
+neither compiles nor loads them. A library lands in ``build/kernels/`` under
+the repository root, named by a hash of its sources and flags, so an edited
+kernel rebuilds and an unchanged one loads from disk. Nothing here runs at
+import time: the CPU tests import every module of the package on a machine
+with no ``nvcc``.
 
 Each C entry point takes every pointer and the stream as ``void*`` and returns
 the ``cudaError_t`` of its launch; :func:`check` raises on a non-zero code.
@@ -18,7 +21,7 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -30,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 # guards every wrapper's launch counter: the recommendation engine launches
 # kernels from its pool threads, and a bare ``+= 1`` can lose a count
 _count_lock = threading.Lock()
@@ -52,11 +55,22 @@ _SIGNATURES = {
     # ids, v0..v3, out_ids, o0..o3, Q, W, k, ipt, threads, smem, stream
     "sort_by_id": [_P] * 10 + [_I] * 6 + [_P],
 }
+# the libraries: each its sources' directory and its entry points' signatures
+_LIBRARIES = {
+    "kernels": (_CSRC, _SIGNATURES),
+    "experts": (os.path.join(_CSRC, "experts"), {
+        # x, wg, wu, h, src, offsets, tiles, E, D, I, max_tiles, stream
+        "expert_gemm_swiglu": [_P] * 7 + [_I] * 4 + [_P],
+        # h, wd, y, dst, offsets, tiles, E, I, D, max_tiles, stream
+        "expert_gemm_down": [_P] * 6 + [_I] * 4 + [_P],
+    }),
+}
 
 
-def _sources(suffixes=(".cu",)):
+def _sources(name: str, suffixes=(".cu",)):
+    folder = _LIBRARIES[name][0]
     return sorted(
-        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(suffixes)
+        os.path.join(folder, f) for f in os.listdir(folder) if f.endswith(suffixes)
     )
 
 
@@ -70,22 +84,22 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> str:
+def library_path(name: str = "kernels") -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources((".cu", ".cuh")):  # an edited header rebuilds too
+    for src in _sources(name, (".cu", ".cuh")):  # an edited header rebuilds too
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libkernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernels unless a library of the same sources exists."""
-    out = library_path()
+def build(name: str = "kernels") -> str:
+    """Compile library ``name`` unless one of the same sources exists."""
+    out = library_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources(name)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -95,18 +109,17 @@ def build() -> str:
     return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+def lib(name: str = "kernels") -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first use."""
     with _lock:
-        if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
+        if name not in _libs:
+            handle = ctypes.CDLL(build(name))
+            for entry, argtypes in _LIBRARIES[name][1].items():
+                fn = getattr(handle, entry)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = handle
-        return _lib
+            _libs[name] = handle
+        return _libs[name]
 
 
 def check(err: int, name: str) -> None:

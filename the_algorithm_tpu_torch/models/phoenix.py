@@ -63,7 +63,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +71,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from the_algorithm_tpu_torch.core.device import resolve
+from the_algorithm_tpu_torch.core.metrics import span
+from the_algorithm_tpu_torch.models.moe_transformer import (DecoderLayer, MoE, MoEDecoderConfig, RMSNorm,
+                                                            allowed_keys, rope_tables)
 from the_algorithm_tpu_torch.ops.gather import table_read
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -147,6 +150,10 @@ class PhoenixConfig:
     max_history: int = 256  # reference aggregates to maxLength=1024
     author_buckets: int = 1 << 16
     dtype: str = "bfloat16"
+    # None: the JAX package's pre-LN GELU blocks over learned positions. A
+    # MoEDecoderConfig: n_layers DeepSeek-V3 layers (moe_transformer.py), RoPE
+    # over the history's slots, parameters held in the compute type
+    decoder: Optional[MoEDecoderConfig] = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -254,8 +261,16 @@ class Block(nn.Module):
 
 class PhoenixModel(nn.Module):
     """History encoder + candidate cross-attention readout → action logits
-    [C, NUM_ACTIONS] f32. Built on the card unless ``device`` names another;
-    parameters f32, products in ``config.dtype``."""
+    [C, NUM_ACTIONS] f32. Built on the card unless ``device`` names another.
+
+    Without ``config.decoder``: the JAX package's model, parameters f32,
+    products in ``config.dtype``. With one: the history runs through
+    ``n_layers`` DeepSeek-V3 layers (:mod:`~the_algorithm_tpu_torch.models.
+    moe_transformer`; RoPE in place of ``pos_emb``, a final RMSNorm in place
+    of ``enc_ln``), every product's parameters held in the compute type
+    (the tables, norms and ``action_head`` stay f32), the same readout at
+    ``d_model`` with ``n_heads`` heads, in ``phoenix.*`` spans. That kind
+    serves: its routed experts' kernels have no backward."""
 
     def __init__(self, config: PhoenixConfig = PhoenixConfig(), *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -266,11 +281,20 @@ class PhoenixModel(nn.Module):
         self.action_emb = Embed(NUM_ACTIONS, D, device, generator)
         self.author_emb = Embed(cfg.author_buckets, D, device, generator)
         self.age_emb = Embed(len(AGE_BUCKET_BOUNDS_S) + 1, D, device, generator)
-        self.pos_emb = nn.Parameter(torch.empty(cfg.max_history, D, device=device))
-        nn.init.normal_(self.pos_emb, std=0.02, generator=generator)
-        for i in range(cfg.n_layers):
-            setattr(self, f"enc_{i}", Block(D, cfg.n_heads, dt, True, device, generator))
-        self.enc_ln = LayerNorm(D, device)
+        if cfg.decoder is None:
+            self.pos_emb = nn.Parameter(torch.empty(cfg.max_history, D, device=device))
+            nn.init.normal_(self.pos_emb, std=0.02, generator=generator)
+            for i in range(cfg.n_layers):
+                setattr(self, f"enc_{i}", Block(D, cfg.n_heads, dt, True, device, generator))
+            self.enc_ln = LayerNorm(D, device)
+        else:
+            c = cfg.decoder
+            self.layers = nn.ModuleList(
+                DecoderLayer(D, cfg.n_heads, c, i < c.first_k_dense_replace, dt, device, generator)
+                for i in range(cfg.n_layers))
+            self.norm = RMSNorm(D, c.rms_norm_eps, device)
+            self.register_buffer("rope", rope_tables(cfg.max_history, c.qk_rope_head_dim, c.rope_theta, device),
+                                 persistent=False)
         self.bool_proj = Dense(NUM_BOOL_FEATURES, D, True, dt, device, generator)
         self.cand_ln = LayerNorm(D, device)
         self.xq = Dense(D, D, False, dt, device, generator)
@@ -279,8 +303,15 @@ class PhoenixModel(nn.Module):
         self.head_ln = LayerNorm(D, device)
         self.head_mlp = Dense(D, D, True, dt, device, generator)
         self.action_head = Dense(D, NUM_ACTIONS, True, torch.float32, device, generator)
+        if cfg.decoder is not None:
+            for m in (self.bool_proj, self.xq, self.xk, self.xv, self.head_mlp):
+                m.to(dt)
         self.register_buffer("age_bounds", torch.tensor(AGE_BUCKET_BOUNDS_S, dtype=torch.int32, device=device),
                              persistent=False)
+
+    def moe_layers(self) -> List[MoE]:
+        """The routed layers of the decoder kind, in order (none otherwise)."""
+        return [m for m in self.modules() if isinstance(m, MoE)]
 
     def forward(self, seq: UserActionSequence, cands: CandidateFeatures) -> torch.Tensor:
         """Action logits f32: [C, NUM_ACTIONS] for one request (``seq`` [L],
@@ -292,19 +323,49 @@ class PhoenixModel(nn.Module):
 
     def _forward(self, seq: UserActionSequence, cands: CandidateFeatures) -> torch.Tensor:
         cfg = self.config
-        dt, D, H = cfg.compute_dtype, cfg.d_model, cfg.n_heads
-        B, L = seq.action_ids.shape
+        if cfg.decoder is not None:
+            with span("phoenix.forward"):
+                return self._forward_decoder(seq, cands)
+        dt = cfg.compute_dtype
+        auth_cand, x = self._tokens(seq, cands)
+        x = x + self.pos_emb.to(dt)
+        for i in range(cfg.n_layers):
+            x = getattr(self, f"enc_{i}")(x, seq.valid)
+        x = self.enc_ln(x).to(dt)  # [B, L, D]
+        return self._readout(x, auth_cand, cands, seq.valid)
+
+    def _forward_decoder(self, seq: UserActionSequence, cands: CandidateFeatures) -> torch.Tensor:
+        L = seq.action_ids.shape[1]
+        auth_cand, x = self._tokens(seq, cands)
+        rope, allowed = self.rope[:, :L], allowed_keys(seq.valid)
+        for layer in self.layers:
+            x = layer(x, rope, allowed)
+        x = self.norm(x)
+        with span("phoenix.readout"):
+            return self._readout(x, auth_cand, cands, seq.valid)
+
+    def _tokens(self, seq: UserActionSequence, cands: CandidateFeatures):
+        """(candidate author rows, history tokens without positions), in the
+        compute type."""
+        cfg = self.config
+        dt = cfg.compute_dtype
+        L = seq.action_ids.shape[1]
         # one author_emb read for both token sets of every request (% is floor-mod, as in JAX)
         hashes = torch.cat([seq.author_hashes, cands.author_hashes], dim=1).to(torch.int32)
         auth = table_read(self.author_emb.embedding, torch.remainder(hashes, cfg.author_buckets)).to(dt)
         auth_hist, auth_cand = auth[:, :L], auth[:, L:]
         age_bucket = torch.searchsorted(self.age_bounds, seq.age_s.to(torch.int32).contiguous(), right=False)
         x = (self.action_emb.embedding[seq.action_ids.long()].to(dt) + auth_hist
-             + self.age_emb.embedding[age_bucket].to(dt) + self.pos_emb.to(dt))
-        for i in range(cfg.n_layers):
-            x = getattr(self, f"enc_{i}")(x, seq.valid)
-        x = self.enc_ln(x).to(dt)  # [B, L, D]
+             + self.age_emb.embedding[age_bucket].to(dt))
+        return auth_cand, x
 
+    def _readout(self, x: torch.Tensor, auth_cand: torch.Tensor, cands: CandidateFeatures,
+                 valid: torch.Tensor) -> torch.Tensor:
+        """Candidate query tokens cross-attend into the encoded history x
+        [B, L, D]; the head → [B, C, NUM_ACTIONS] f32."""
+        cfg = self.config
+        dt, D, H = cfg.compute_dtype, cfg.d_model, cfg.n_heads
+        B, L = valid.shape
         # candidate query tokens
         cq = auth_cand + self.bool_proj(cands.bool_features.to(dt))
         cq = self.cand_ln(cq).to(dt)  # [B, C, D]
@@ -313,7 +374,7 @@ class PhoenixModel(nn.Module):
         q = self.xq(cq).reshape(B, -1, H, D // H)
         k = self.xk(x).reshape(B, L, H, D // H)
         v = self.xv(x).reshape(B, L, H, D // H)
-        r = _attend(q, k, v, _key_mask(seq.valid), dt).reshape(B, -1, D)
+        r = _attend(q, k, v, _key_mask(valid), dt).reshape(B, -1, D)
         r = r + cq
         h = F.gelu(self.head_mlp(self.head_ln(r).to(dt)), approximate="tanh")
         return self.action_head(h.float())  # [B, C, NUM_ACTIONS]
@@ -331,7 +392,7 @@ def scorer_predict_fn(model: PhoenixModel) -> Callable:
     predict fn over ``model``: (authors [C], bool features [C, NB], valid [C]
     numpy, the query's :class:`UserActionSequence`) → [C, NUM_ACTIONS]
     probabilities as numpy, computed on the model's device."""
-    device = model.pos_emb.device
+    device = model.author_emb.embedding.device
 
     def predict(authors, bools, valid, user_actions) -> np.ndarray:
         cands = CandidateFeatures(torch.from_numpy(np.asarray(authors, np.int32)),
